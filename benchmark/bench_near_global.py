@@ -7,13 +7,15 @@ spherical Coriolis, wind stress, vertically-implicit diffusion.
 Reports ms/step and grid-points/s on the current backend. The reference
 anchor is its quarter-degree near-global setup (BASELINE.md config 5).
 """
-import os, sys
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import sys
+import bench_common
+DEVICE = bench_common.setup()
 import time
 import jax, jax.numpy as jnp, numpy as np
 from clima_oceananigans_jl_tpu import (ScalarDiffusivity, FieldBCs, FluxBC,
                                        GridFittedBottom)
 from clima_oceananigans_jl_tpu.grids.latlon import LatitudeLongitudeGrid
+from clima_oceananigans_jl_tpu.models.compile import compile_step
 from clima_oceananigans_jl_tpu.models.hydrostatic import HydrostaticFreeSurfaceModel
 from clima_oceananigans_jl_tpu.models.free_surface import SplitExplicitFreeSurface
 from clima_oceananigans_jl_tpu.coriolis.coriolis import HydrostaticSphericalCoriolis
@@ -44,7 +46,7 @@ model = HydrostaticFreeSurfaceModel(
 state = model.initial_state(
     b=lambda lam, phi, z: 2e-5 * (z + 3000.0) / 3000.0)
 dt = jnp.asarray(600.0, grid.dtype)
-step = jax.jit(model.step)
+step = compile_step(model, donate=True)
 state = step(state, dt)
 jax.block_until_ready(jax.tree_util.tree_leaves(state)[0])
 print("compiled", flush=True)

@@ -1,9 +1,11 @@
 """Nonhydrostatic benchmark at a given N (AB2, the reference's config)."""
-import os, sys
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import sys
+import bench_common
+DEVICE = bench_common.setup()
 import time, jax, jax.numpy as jnp
 from clima_oceananigans_jl_tpu import PERIODIC, BOUNDED, RectilinearGrid, WENO5
 from clima_oceananigans_jl_tpu.buoyancy.buoyancy import BuoyancyTracer
+from clima_oceananigans_jl_tpu.models.compile import compile_step
 from clima_oceananigans_jl_tpu.models.nonhydrostatic import NonhydrostaticModel
 
 n = int(sys.argv[1]) if len(sys.argv) > 1 else 128
@@ -17,7 +19,7 @@ state = model.initial_state(u=1e-2 * jax.random.normal(jax.random.PRNGKey(0),
                                                        grid.shape, grid.dtype))
 jax.block_until_ready(state)
 print(f"state {time.perf_counter()-t0:.1f}s", flush=True)
-step = jax.jit(model.step, donate_argnums=0)
+step = compile_step(model, donate=True)
 t0 = time.perf_counter()
 state = step(state, jnp.float32(1e-4)); jax.block_until_ready(state)
 print(f"compile+first {time.perf_counter()-t0:.1f}s", flush=True)

@@ -2,14 +2,16 @@
 16384^2 on V100 = 681 ms/step FP64, ~394 M pts/s).
 
 Prints a human line plus ONE JSON line in the bench.py artifact format
-(vs_baseline against the reference's V100 anchor above), so the
-measurement is a reproducible driver-grade record (VERDICT r2 item 8).
+(vs_baseline against the reference's V100 anchor above), naming the
+card it ran on.
 """
 import json
-import os, sys
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import sys
+import bench_common
+DEVICE = bench_common.setup()
 import time, jax, jax.numpy as jnp, numpy as np
 from clima_oceananigans_jl_tpu import PERIODIC, FLAT, RectilinearGrid, WENO5
+from clima_oceananigans_jl_tpu.models.compile import compile_step
 from clima_oceananigans_jl_tpu.models.shallow_water import ShallowWaterModel
 
 n = int(sys.argv[1]) if len(sys.argv) > 1 else 8192
@@ -21,7 +23,7 @@ state = model.initial_state(
     uh=lambda x, y, z: 0.1*jnp.sin(x)*jnp.cos(y), h=1.0)
 jax.block_until_ready(state)
 print("state ready", flush=True)
-step = jax.jit(model.step, donate_argnums=0)
+step = compile_step(model, donate=True)
 dt = jnp.float32(1e-4)
 state = step(state, dt); state = step(state, dt)
 jax.block_until_ready(state)
@@ -37,4 +39,6 @@ print(json.dumps({
     "value": round(n * n / d),
     "unit": "points/s",
     "vs_baseline": round(n * n / d / 394e6, 3),
+    "device": {"platform": DEVICE.platform, "kind": DEVICE.device_kind,
+               "count": len(jax.devices())},
 }), flush=True)

@@ -1,5 +1,6 @@
-import os, sys
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import sys
+import bench_common
+DEVICE = bench_common.setup()
 import time, jax, jax.numpy as jnp, numpy as np
 from clima_oceananigans_jl_tpu import PERIODIC, BOUNDED, RectilinearGrid
 from clima_oceananigans_jl_tpu.solvers.fft_poisson import FFTPoissonSolver

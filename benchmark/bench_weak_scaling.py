@@ -1,17 +1,17 @@
-"""Weak-scaling benchmark: fixed per-chip subdomain, growing (x, y) mesh.
+"""Weak-scaling benchmark: fixed per-GPU subdomain, growing (x, y) mesh.
 
 Reference anchors (docs/src/appendix/benchmarks.md): shallow-water MPI
 weak scaling 2→128 ranks: 97%→81% efficiency; nonhydrostatic (distributed
-FFT dominated): 12% at 128 ranks — the pencil all_to_all over ICI is the
-path this build is designed to win on.
+FFT dominated): 12% at 128 ranks.
 
-Run on a pod slice (or a virtual CPU mesh for semantics):
+Run on a host of several GPUs:
     python benchmark/bench_weak_scaling.py [model] [local_n]
-measures ms/step and pts/s/chip for every mesh size that divides the
-available devices; efficiency = throughput_per_chip(N) / (N=1).
+measures ms/step and pts/s/GPU for every mesh size that divides the
+available devices; efficiency = throughput_per_gpu(N) / (N=1).
 """
-import os, sys
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import sys
+import bench_common
+DEVICE = bench_common.setup()
 import time, jax, jax.numpy as jnp, numpy as np
 from clima_oceananigans_jl_tpu import (
     PERIODIC, BOUNDED, FLAT, RectilinearGrid, WENO5, DistributedModel, make_mesh,

@@ -1,6 +1,7 @@
 """Per-phase timing of the nonhydrostatic step (compile + steady-state)."""
-import os, sys
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import sys
+import bench_common
+DEVICE = bench_common.setup()
 import time, jax, jax.numpy as jnp
 from clima_oceananigans_jl_tpu import PERIODIC, BOUNDED, RectilinearGrid, WENO5
 from clima_oceananigans_jl_tpu.buoyancy.buoyancy import BuoyancyTracer

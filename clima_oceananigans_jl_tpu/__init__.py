@@ -1,9 +1,9 @@
-"""TPU-native ocean-dynamics framework (capabilities of Oceananigans.jl).
+"""Ocean-dynamics framework in JAX (capabilities of Oceananigans.jl).
 
 Finite-volume incompressible (nonhydrostatic + hydrostatic Boussinesq) and
-shallow-water solvers on staggered Arakawa-C grids, built JAX/XLA/Pallas-
-first: immutable pytree state, jitted whole-step functions, sharding via
-``jax.sharding.Mesh`` + ``shard_map`` collectives over ICI/DCN.
+shallow-water solvers on staggered Arakawa-C grids, built JAX/XLA-first:
+immutable pytree state, jitted whole-step functions, sharding via
+``jax.sharding.Mesh`` + ``shard_map`` collectives (NCCL between GPUs).
 """
 
 from .grids.topology import PERIODIC, BOUNDED, FLAT, FULLY_CONNECTED, Topology

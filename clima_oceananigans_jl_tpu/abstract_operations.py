@@ -1,6 +1,6 @@
 """Lazy operations over fields: the diagnostics expression DAG.
 
-TPU re-design of /root/reference/src/AbstractOperations/
+Array re-design of the reference's src/AbstractOperations/
 (AbstractOperations.jl:33, at.jl, computed_field.jl:35-84,
 metric_field_reductions.jl): an expression tree of
 Unary/Binary/Derivative/KernelFunction operations over ``Field``s, with

@@ -5,7 +5,7 @@ optimal (linear) weights are formally inconsistent; the reference
 precomputes per-index reconstruction coefficients from the grid's node
 positions (reference src/Advection/weno_fifth_order.jl:21-60, via the
 classic finite-volume reconstruction formula of Shu's ENO/WENO lecture
-notes).  This module computes the same tables the TPU way: whole-axis
+notes).  This module computes the same tables as whole-axis
 1D arrays derived from the grid's coordinate leaves with closed-form
 Lagrange algebra (no linear solves), so the computation traces cleanly
 under jit and constant-folds when the grid is a compile-time constant.
@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-from ..grids.topology import FLAT
+from ..grids.topology import FLAT, PERIODIC
 
 
 def _recon_coeffs(X, nodes):
@@ -79,14 +79,10 @@ def _build_tables(P, to_f):
 
     Table entry i targets position P[i] (face i / center i).  Entries
     whose stencil crosses the array ends wrap (jnp.roll) and are
-    garbage there — exactly the outermost halo shell, which no interior
-    flux divergence ever reads (valid faces are i ∈ [3, n_tot−3] for
-    halo 3, the same region the uniform scheme requires).
+    garbage there; ``weno5_tables`` pads P by three nodes on each side
+    first, so every entry it returns is exact.
     """
-    # axis=0 rolls the coordinate dimension: identical to the flat roll for
-    # the 1D jnp-path arrays, and correct for the transposed-layout fused
-    # kernels' 2D (z, y) coordinate rows
-    roll = lambda o: jnp.roll(P, -o, axis=0) if o else P
+    roll = lambda o: jnp.roll(P, -o) if o else P
     vshift = 0 if to_f else 1
     out = {}
     for side in ("left", "right"):
@@ -118,13 +114,28 @@ def _build_tables(P, to_f):
 
 def weno5_tables(grid, axis, to_f):
     """Per-axis WENO5 tables for ``grid`` (None on uniform/flat axes, or
-    grids without 1D coordinate axes — curvilinear and the fused
-    kernels' ConstMetricGrid, which only ever represents regular
-    spacing)."""
+    grids without 1D coordinate axes)."""
     axes = getattr(grid, "_axes", None)
     if axes is None:
         return None
     a = axes[axis]
     if a.topo is FLAT or a.regular:
         return None
-    return _build_tables(a.cf if to_f else a.cc, to_f)
+    P = a.cf if to_f else a.cc
+    if a.topo is PERIODIC:  # P[j + n] = P[j] + extent
+        lo = P[a.n - _PAD:a.n] - a.extent
+        hi = P[len(P) - a.n:len(P) - a.n + _PAD] + a.extent
+    else:  # continue with the edge spacing, as the grid's halos do
+        k = jnp.arange(1, _PAD + 1, dtype=P.dtype)
+        lo = P[0] - (P[1] - P[0]) * k[::-1]
+        hi = P[-1] + (P[-1] - P[-2]) * k
+    tables = _build_tables(jnp.concatenate([lo, P, hi]), to_f)
+    cut = lambda x: x[_PAD:_PAD + len(P)]
+    return {side: [(cut(d), [cut(c) for c in cj], voff, kind)
+                   for d, cj, voff, kind in per_r]
+            for side, per_r in tables.items()}
+
+
+#: nodes added on each side before the tables are built: the widest
+#: stencil reaches three nodes past its target
+_PAD = 3

@@ -29,12 +29,6 @@ import numpy as np
 from ..grids.topology import BOUNDED
 from ..ops.stencil import shift, ic, if_, i4c, i4f
 
-#: trace-time flag set by the fused Pallas kernels (ops/fused_tendencies
-#: pallas_fuse / fused_advective_tendencies) while tracing kernel bodies:
-#: enables the approximate-reciprocal + Newton division in WENO5._combine
-#: (pl.reciprocal is only legal inside pallas_call).
-PALLAS_FAST_DIV = False
-
 
 @dataclasses.dataclass(frozen=True)
 class AdvectionScheme:
@@ -134,24 +128,23 @@ class WENO5(AdvectionScheme):
     ``table_reconstruct``.
 
     ``fast_bf16=True`` evaluates the nonlinear reconstruction in
-    bfloat16 (the TPU VPU's double-rate dtype) and casts the result back
-    — the smoothness weights are heuristic, so this trades ~3 decimal
-    digits of the reconstruction for roughly half the compute of the
-    dominant kernel. Off by default (benchmarks and parity tests run
-    full fp32/fp64)."""
+    bfloat16 and casts the result back — the smoothness weights are
+    heuristic, so this trades ~3 decimal digits of the reconstruction
+    for half the bytes of its operands. Off by default (benchmarks and
+    parity tests run full fp32/fp64)."""
 
     buffer: int = 2
     is_upwind: bool = True
     eps: float = 1e-6
     fast_bf16: bool = False
     #: evaluate ONLY the Jiang-Shu smoothness indicators and the nonlinear
-    #: weights in bfloat16 (packed double-rate on the TPU VPU), keeping the
-    #: candidate reconstructions (the accuracy-carrying taps) in full
-    #: precision. The indicators merely SELECT a convex combination of the
-    #: candidates: perturbing them at bf16 granularity moves the weights
-    #: within their own O(Δx²) heuristic slack, so the flux perturbation
-    #: is bounded by the scheme's truncation error (accuracy-gated in
-    #: tests/test_bf16_smoothness.py; ~25% off the fused-kernel VPU work).
+    #: weights in bfloat16, keeping the candidate reconstructions (the
+    #: accuracy-carrying taps) in full precision. The indicators merely
+    #: SELECT a convex combination of the candidates: perturbing them at
+    #: bf16 granularity moves the weights within their own O(Δx²)
+    #: heuristic slack, so the flux perturbation is bounded by the
+    #: scheme's truncation error (accuracy-gated in
+    #: tests/test_bf16_smoothness.py).
     bf16_smoothness: bool = False
 
     def left_to_f(self, c, axis):
@@ -226,7 +219,7 @@ class WENO5(AdvectionScheme):
         feeding sign-selected streams through one evaluation reproduces
         the same-form two-sided upwind product bit-for-bit (and
         ``lr_to_f_smooth``'s explicit-form blend to fp reassociation)
-        at ~half the VPU work of evaluating both sides
+        at ~half the arithmetic of evaluating both sides
         (tests/test_operators.py equivalence tests)."""
         a0, a1, a2, a3, a4 = a
         d10, d11, d12, d13 = a1 - a0, a2 - a1, a3 - a2, a4 - a3
@@ -250,8 +243,8 @@ class WENO5(AdvectionScheme):
     def _nl_weights(self, b0, b1, b2, d=(0.1, 0.6, 0.3)):
         """Un-normalized nonlinear weights gk = dk Π_{j≠k}(βj+ε)² — the
         single-division form: αk = dk/(βk+ε)² multiplied through by
-        Π(βj+ε)² so the weights become polynomials (divisions are
-        multi-pass on the TPU VPU; the caller keeps exactly one).
+        Π(βj+ε)² so the weights become polynomials (the caller keeps
+        exactly one division).
         Evaluated in the βs' dtype (bf16 under ``bf16_smoothness``)."""
         eps = self.eps
         t0 = (b0 + eps) * (b0 + eps)
@@ -267,22 +260,13 @@ class WENO5(AdvectionScheme):
             g0, g1, g2 = (g.astype(p0.dtype) for g in (g0, g1, g2))
         num = g0 * p0 + g1 * p1 + g2 * p2
         den = g0 + g1 + g2
-        if PALLAS_FAST_DIV and num.dtype == jnp.float32:
-            # inside a compiled Pallas kernel: approximate reciprocal +
-            # one Newton step — ≤ ~2 ulp from the exact quotient at about
-            # half the VPU cost of fp32 division (measured 12% off the
-            # whole fused-tendency kernel at 256³)
-            from jax.experimental import pallas as pl
-            r = pl.reciprocal(den, approx=True)
-            r = r * (2.0 - den * r)
-            return num * r
         return num / den
 
     def left_right_to_f(self, c, axis):
         """Both biased reconstructions at once with shared subexpressions:
         first/second differences (d1, d2) and the 13/12·d2² smoothness
         terms are common to the left and right stencils at a face —
-        ~30% fewer VPU ops than two independent evaluations. Bitwise
+        ~30% fewer operations than two independent evaluations. Bitwise
         equality with left_to_f/right_to_f is NOT guaranteed (float
         reassociation); both paths are 5th-order JS-WENO."""
         if self.fast_bf16:
@@ -332,7 +316,7 @@ class WENO5(AdvectionScheme):
         the smoothness indicators square every reflected term), feeding
         the sign-selected stream through this single evaluation
         reproduces the two-sided upwind flux bit-for-bit at ~55% of the
-        VPU work (tests/test_operators.py upwind-select equivalence)."""
+        arithmetic (tests/test_operators.py upwind-select equivalence)."""
         if self.fast_bf16:
             out = self._weno_stream(tuple(x.astype(jnp.bfloat16) for x in a))
             return out.astype(a[0].dtype)
@@ -343,8 +327,8 @@ class WENO5(AdvectionScheme):
         d10, d11, d12, d13 = a1 - a0, a2 - a1, a3 - a2, a4 - a3
         if self.bf16_smoothness and a0.dtype == jnp.float32:
             # the whole indicator branch (second differences, βs, weights)
-            # runs at the VPU's packed-bf16 double rate; only the final
-            # num/den accumulation returns to f32 (see bf16_smoothness)
+            # runs in bf16; only the final num/den accumulation returns
+            # to f32 (see bf16_smoothness)
             e11, e12 = d11.astype(jnp.bfloat16), d12.astype(jnp.bfloat16)
             e20 = e11 - d10.astype(jnp.bfloat16)
             e21 = e12 - e11
@@ -373,15 +357,9 @@ class WENO5(AdvectionScheme):
         return self._table_eval(v, axis, tables[side])
 
     def _table_eval(self, v, axis, side_tables):
-        from ..ops.stencil import phys_axis
-
         def bx(arr):
-            if getattr(arr, "ndim", 0) > 1:
-                # transposed-layout kernels pass tables as 2D (z, y) rows
-                # that broadcast against the blocks' trailing dims directly
-                return arr.astype(v.dtype)
             shape = [1] * v.ndim
-            shape[phys_axis(axis)] = arr.shape[0]
+            shape[axis] = arr.shape[0]
             return arr.reshape(shape).astype(v.dtype)
 
         ps, bs, ds = [], [], []
@@ -512,21 +490,13 @@ def reduced_order_masks(grid, axis, scheme):
     bounds* of the region where the full-order stencil reads only
     interior (+first-ghost) cells. Outside, `transport` falls back to
     second-order centered interpolation, exactly like the reference.
-    Bounds (not mask arrays) so the select can be built in-kernel with
-    `broadcasted_iota` — Pallas kernels cannot capture array constants.
-
-    Duck-typed: grids without a `.topology` (the fused kernels'
-    ConstMetricGrid) may supply precomputed bounds via `.reduced_masks`
-    (a dict (axis, required_halo) → triple); only legal for axes whose
-    kernel window spans the full array (bounds are absolute positions)."""
+    Bounds (not mask arrays): the select is an iota compare that XLA
+    folds into the consuming fusion."""
     Nb = scheme.required_halo
     if Nb <= 1:
         return None
     topo = getattr(grid, "topology", None)
-    if topo is None:
-        rm = getattr(grid, "reduced_masks", None)
-        return rm.get((axis, Nb)) if rm else None
-    if topo[axis] is not BOUNDED:
+    if topo is None or topo[axis] is not BOUNDED:
         return None
     N = grid.shape[axis]
     H = grid.halo[axis]
@@ -538,25 +508,12 @@ def reduced_order_masks(grid, axis, scheme):
             (H + Nb - 1, H + N - Nb - 1))
 
 
-def _iota_offset(grid, axis):
-    """Element offset of the current array's origin in the full array —
-    0 on whole arrays; inside tiled Pallas windows the block's absolute
-    position (a traced program-id product, ops/kernel_grid.KernelGrid),
-    which makes the absolute-index order-reduction bounds expressible in
-    tiled x/y windows."""
-    offs = getattr(grid, "iota_offset", None) if grid is not None else None
-    return 0 if offs is None else offs[axis]
-
-
-def _select_reduced(bounds, axis, hi_arr, lo_arr, offset=0):
+def _select_reduced(bounds, axis, hi_arr, lo_arr):
     """hi_arr inside [lo, hi] along `axis`, lo_arr outside (static bounds
-    → the compare folds to a constant mask under XLA; with a traced
-    `offset` it is one cheap VPU compare per element)."""
+    → the compare folds to a constant mask under XLA)."""
     import jax.lax as lax
-    from ..ops.stencil import phys_axis
     lo, hi = bounds
-    idx = lax.broadcasted_iota(jnp.int32, hi_arr.shape,
-                               phys_axis(axis)) + offset
+    idx = lax.broadcasted_iota(jnp.int32, hi_arr.shape, axis)
     return jnp.where((idx >= lo) & (idx <= hi), hi_arr, lo_arr)
 
 
@@ -565,19 +522,14 @@ def _immersed_clear(imm, data_loc, axis, to_f, buffer):
     (the whole-array analog of the reference's conditional fluxes,
     conditional_fluxes.jl:1-193: stencils touching solid cells drop to
     the 2nd-order reconstruction; solid-adjacent faces carry zero
-    velocity via the peripheral mask, so their fluxes vanish).
-
-    Masks may be bool (the jnp path) or 0/1 floats (the fused kernels
-    pass masks as field-dtype blocks; summing + one compare avoids
-    boolean-vector rolls, which Mosaic handles poorly)."""
+    velocity via the peripheral mask, so their fluxes vanish)."""
     solid = imm.mask_for(tuple(data_loc))
     lo, hi = (-(buffer + 1), buffer) if to_f else (-buffer, buffer + 1)
     near = solid
     for o in range(lo, hi + 1):
         if o:
-            s = shift(solid, o, axis)
-            near = (near | s) if solid.dtype == jnp.bool_ else (near + s)
-    return ~near if solid.dtype == jnp.bool_ else (near == 0)
+            near = near | shift(solid, o, axis)
+    return ~near
 
 
 def transport(scheme, vel, c, axis, to_f, grid=None, data_loc=None):
@@ -594,7 +546,6 @@ def transport(scheme, vel, c, axis, to_f, grid=None, data_loc=None):
     second order (conditional_fluxes.jl).
     """
     masks = reduced_order_masks(grid, axis, scheme) if grid is not None else None
-    ioff = _iota_offset(grid, axis) if masks is not None else 0
     imm = getattr(grid, "immersed", None) if grid is not None else None
     clear = None
     if imm is not None and data_loc is not None and scheme.buffer > 0:
@@ -603,8 +554,7 @@ def transport(scheme, vel, c, axis, to_f, grid=None, data_loc=None):
         hi = scheme.sym_to_f(c, axis) if to_f else scheme.sym_to_c(c, axis)
         if masks is not None:
             hi = _select_reduced(masks[0], axis, hi,
-                                 if_(c, axis) if to_f else ic(c, axis),
-                                 offset=ioff)
+                                 if_(c, axis) if to_f else ic(c, axis))
         if clear is not None:
             hi = jnp.where(clear, hi, if_(c, axis) if to_f else ic(c, axis))
         return vel * hi
@@ -617,8 +567,7 @@ def transport(scheme, vel, c, axis, to_f, grid=None, data_loc=None):
         # select-first upwinding: pick the upwind stencil by sign(vel),
         # reconstruct ONCE. Bitwise-identical fluxes to the two-sided
         # blend — ((vel+|vel|)L + (vel−|vel|)R)/2 is exactly vel·L or
-        # vel·R in IEEE arithmetic — at ~55% of the VPU work (the
-        # dominant cost of the fused tendency kernel).
+        # vel·R in IEEE arithmetic — at ~55% of the arithmetic.
         sel = vel >= 0
         a = upwind_stream(c, sel, axis, to_f)
         rec = scheme.stream_reconstruct(a)
@@ -626,15 +575,10 @@ def transport(scheme, vel, c, axis, to_f, grid=None, data_loc=None):
             rec = scheme._clip(rec, c, axis, to_f)
         if masks is not None:
             import jax.lax as lax
-            from ..ops.stencil import phys_axis
             lo_val = if_(c, axis) if to_f else ic(c, axis)
-            idx = lax.broadcasted_iota(jnp.int32, rec.shape,
-                                       phys_axis(axis)) + ioff
+            idx = lax.broadcasted_iota(jnp.int32, rec.shape, axis)
             in_l = (idx >= masks[1][0]) & (idx <= masks[1][1])
             in_r = (idx >= masks[2][0]) & (idx <= masks[2][1])
-            # pure i1 logic (not a bool-valued where) — Mosaic cannot
-            # lower a select-produced i8 mask back to an i1 condition
-            # (vector trunci) on large 3D windows
             rec = jnp.where((sel & in_l) | (~sel & in_r), rec, lo_val)
         if clear is not None:
             rec = jnp.where(clear, rec, a[2])  # a[2] = 1st-order upwind
@@ -654,8 +598,8 @@ def transport(scheme, vel, c, axis, to_f, grid=None, data_loc=None):
         L, R = scheme.left_to_c(c, axis), scheme.right_to_c(c, axis)
     if masks is not None:
         lo = if_(c, axis) if to_f else ic(c, axis)
-        L = _select_reduced(masks[1], axis, L, lo, offset=ioff)
-        R = _select_reduced(masks[2], axis, R, lo, offset=ioff)
+        L = _select_reduced(masks[1], axis, L, lo)
+        R = _select_reduced(masks[2], axis, R, lo)
     if clear is not None:
         # near the immersed boundary drop to FIRST-ORDER UPWIND, not the
         # centered mean: collapsing L=R onto the centered value removes

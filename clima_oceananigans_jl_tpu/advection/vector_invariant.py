@@ -54,7 +54,7 @@ class VectorInvariant:
             # select-first upwinding (see schemes.transport): pick the
             # upwind stencil streams by sign(v̂), reconstruct ONCE —
             # vel·where(sel, L, R) ≡ ((vel+|vel|)L + (vel−|vel|)R)/2 in
-            # IEEE arithmetic at ~half the reconstruction VPU work
+            # IEEE arithmetic at ~half the reconstruction arithmetic
             sel = v_hat >= 0
             az = upwind_stream(zeta, sel, 1, False)
             if self.scheme == "weno_velocity":

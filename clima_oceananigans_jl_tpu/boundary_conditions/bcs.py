@@ -1,6 +1,6 @@
 """Boundary conditions and halo filling.
 
-TPU re-design of /root/reference/src/BoundaryConditions/:
+Array re-design of the reference's src/BoundaryConditions/:
 
 * BC classifications Flux / Value (Dirichlet) / Gradient (Neumann) /
   Open / Periodic / Communication
@@ -23,7 +23,6 @@ TPU re-design of /root/reference/src/BoundaryConditions/:
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Any, Callable, Optional
 
 import jax
@@ -182,17 +181,9 @@ def _axslice(data, axis, idx):
     return tuple(sl)
 
 
-def _mirror_slab(data, axis, interior_idx, concat=False):
+def _mirror_slab(data, axis, interior_idx):
     """Gather the mirror layers for a whole ghost slab in one op (a flip
-    of a contiguous range when no clamping is needed, else a gather).
-    ``concat=True`` (Pallas kernel callers): per-layer slices + one
-    concatenate instead — `rev` and `gather` cannot lower inside Mosaic
-    kernels, and a halo-width slab on a VMEM block costs nothing."""
-    if concat:
-        layers = [jax.lax.slice_in_dim(data, i, i + 1, axis=axis)
-                  for i in interior_idx]
-        return (layers[0] if len(layers) == 1
-                else jax.lax.concatenate(layers, axis))
+    of a contiguous range when no clamping is needed, else a gather)."""
     idx = list(interior_idx)
     rev = list(reversed(idx))
     if rev == list(range(rev[0], rev[0] + len(rev))):  # contiguous descending
@@ -208,17 +199,12 @@ def _layer_shape(data, axis, n):
     return tuple(shape)
 
 
-def _bounded_slab(data, grid, loc, axis, side, bc, t=0.0, perm=None,
-                  concat=False):
+def _bounded_slab(data, grid, loc, axis, side, bc, t=0.0):
     """(slab, cut) for one bounded side: `slab` replaces array indices
-    [0:cut) (side 0) or [cut:end) (side 1). slab=None → nothing to write.
-    ``perm``: physical axis permutation for arrays stored transposed
-    (logical axis a lives at data axis perm[a]) — grid/BC lookups stay
-    logical, data indexing uses the physical axis."""
+    [0:cut) (side 0) or [cut:end) (side 1). slab=None → nothing to write."""
     N = grid.shape[axis]
     H = grid.halo[axis]
     ax = grid._axes[axis]
-    pax = axis if perm is None else perm[axis]
     face_loc = loc[axis] is F
     if bc is None or bc.kind in ("communication", "periodic"):
         return None, (H if side == 0 else H + N + (1 if face_loc else 0))
@@ -227,8 +213,6 @@ def _bounded_slab(data, grid, loc, axis, side, bc, t=0.0, perm=None,
     # apply_flux_bcs — never evaluate their value here (a discrete-form
     # flux callable has the signature (grid, clock, fields), not (x,y,t))
     b = None if kind == "flux" else _bvalue(bc, grid, axis, side, loc, t)
-    if perm is not None and getattr(b, "ndim", 0) == 3:
-        b = jnp.transpose(b, perm)
     clampc = lambda i: min(max(i, H), H + N - 1)
 
     if not face_loc:
@@ -240,7 +224,7 @@ def _bounded_slab(data, grid, loc, axis, side, bc, t=0.0, perm=None,
             ghosts = list(range(H + N, H + N + H))
             mirrors = [clampc(2 * (H + N) - 1 - g) for g in ghosts]
             cut = H + N
-        slab = _mirror_slab(data, pax, mirrors, concat=concat)
+        slab = _mirror_slab(data, axis, mirrors)
         if kind == "value":
             slab = 2.0 * b - slab
         elif kind == "gradient":
@@ -249,11 +233,11 @@ def _bounded_slab(data, grid, loc, axis, side, bc, t=0.0, perm=None,
             #       = mirror + b·(c_ghost − c_mirror) on the right
             dist = jnp.stack([cc[m] - cc[g] for g, m in zip(ghosts, mirrors)])
             shape = [1] * data.ndim  # rank-agnostic (2D free-surface fields)
-            shape[pax] = H
+            shape[axis] = H
             dist = dist.reshape(shape)
             slab = slab - b * dist
         # flux/default: zero-gradient mirror (slab as is)
-        return jnp.broadcast_to(slab, _layer_shape(data, pax, H)), cut
+        return jnp.broadcast_to(slab, _layer_shape(data, axis, H)), cut
 
     # face-located: boundary face at H (left) / H+N (right)
     bidx = H if side == 0 else H + N
@@ -264,21 +248,21 @@ def _bounded_slab(data, grid, loc, axis, side, bc, t=0.0, perm=None,
         ghosts = list(range(bidx + 1, bidx + H))
     mirrors = [min(max(2 * bidx - g, lo), hi) for g in ghosts]
     if kind in ("open", "value"):
-        bf = jnp.broadcast_to(b, _layer_shape(data, pax, 1))
-        ghost = ((2.0 * b - _mirror_slab(data, pax, mirrors, concat=concat))
+        bf = jnp.broadcast_to(b, _layer_shape(data, axis, 1))
+        ghost = ((2.0 * b - _mirror_slab(data, axis, mirrors))
              if ghosts else None)
         if side == 0:
-            parts = ([jnp.broadcast_to(ghost, _layer_shape(data, pax, len(ghosts))), bf]
+            parts = ([jnp.broadcast_to(ghost, _layer_shape(data, axis, len(ghosts))), bf]
                      if ghost is not None else [bf])
-            return jnp.concatenate(parts, axis=pax), H + 1
-        parts = ([bf, jnp.broadcast_to(ghost, _layer_shape(data, pax, len(ghosts)))]
+            return jnp.concatenate(parts, axis=axis), H + 1
+        parts = ([bf, jnp.broadcast_to(ghost, _layer_shape(data, axis, len(ghosts)))]
                  if ghost is not None else [bf])
-        return jnp.concatenate(parts, axis=pax), H + N
+        return jnp.concatenate(parts, axis=axis), H + N
     # flux/default: zero-gradient mirror about the (untouched) boundary face
     if not ghosts:
         return None, (H if side == 0 else H + N + 1)
-    slab = jnp.broadcast_to(_mirror_slab(data, pax, mirrors, concat=concat),
-                            _layer_shape(data, pax, len(ghosts)))
+    slab = jnp.broadcast_to(_mirror_slab(data, axis, mirrors),
+                            _layer_shape(data, axis, len(ghosts)))
     return slab, (H if side == 0 else H + N + 1)
 
 
@@ -295,37 +279,21 @@ def _fill_bounded_side(data, grid, loc, axis, side, bc, t=0.0):
     return jnp.concatenate([data[tuple(sl)], slab], axis=axis)
 
 
-def fill_halos_axis(data, grid, loc, axis, bc_left, bc_right, t=0.0,
-                    perm=None, concat=False):
-    """``concat=True``: assemble the filled array with lax.concatenate
-    instead of ``.at[].set`` slab updates — REQUIRED inside Pallas TPU
-    kernels (``.at[].set`` traces to a ``scatter`` primitive Mosaic
-    cannot lower; on a VMEM block a concat costs nothing anyway)."""
+def fill_halos_axis(data, grid, loc, axis, bc_left, bc_right, t=0.0):
     topo = grid.topology[axis]
     if topo is FLAT:
         return data
     N = grid.shape[axis]
     H = grid.halo[axis]
-    pax = axis if perm is None else perm[axis]
-    S = lambda idx: _axslice(data, pax, idx)
+    S = lambda idx: _axslice(data, axis, idx)
 
     if topo in (PERIODIC,):
-        if concat:
-            return jax.lax.concatenate(
-                [data[S(slice(N, N + H))], data[S(slice(H, N + H))],
-                 data[S(slice(H, 2 * H))]], pax)
         # two in-place slab updates: XLA aliases the buffer and touches
         # only the halo slabs, where a concat re-materializes the whole
-        # array (measured 1.69 GB vs 0.31 GB accessed per 3-axis fill of
-        # a 256³ fp32 field on TPU — benchmark/fill_variants.py)
+        # array
         data = data.at[S(slice(0, H))].set(data[S(slice(N, N + H))])
         return data.at[S(slice(N + H, N + 2 * H))].set(data[S(slice(H, 2 * H))])
     if topo is FULLY_CONNECTED:
-        if perm is not None:  # not assert: must survive python -O
-            raise NotImplementedError(
-                "distributed fills run in the natural layout — a permuted "
-                "(x, z, y) state would ppermute along the wrong physical "
-                "axis (DistributedModel clears state_layout for this)")
         dist = getattr(grid, "dist", (None, None, None))[axis]
         if dist is None:
             return data  # filled by an external (multi-region) exchange
@@ -342,22 +310,12 @@ def fill_halos_axis(data, grid, loc, axis, bc_left, bc_right, t=0.0,
 
     # bounded: in-place slab writes (both slabs computed from the
     # pre-update data; see the periodic branch for why not concat)
-    left, cut0 = _bounded_slab(data, grid, loc, axis, 0, bc_left, t,
-                               perm=perm, concat=concat)
-    right, cut1 = _bounded_slab(data, grid, loc, axis, 1, bc_right, t,
-                                perm=perm, concat=concat)
-    if concat:
-        parts = ([] if left is None else [left])
-        parts.append(data[S(slice(cut0 if left is not None else 0,
-                                  cut1 if right is not None
-                                  else data.shape[pax]))])
-        if right is not None:
-            parts.append(right)
-        return jax.lax.concatenate(parts, pax) if len(parts) > 1 else parts[0]
+    left, cut0 = _bounded_slab(data, grid, loc, axis, 0, bc_left, t)
+    right, cut1 = _bounded_slab(data, grid, loc, axis, 1, bc_right, t)
     if left is not None:
         data = data.at[S(slice(0, cut0))].set(left)
     if right is not None:
-        data = data.at[S(slice(cut1, data.shape[pax]))].set(right)
+        data = data.at[S(slice(cut1, data.shape[axis]))].set(right)
     return data
 
 
@@ -402,37 +360,17 @@ def impose_cut_wall_faces(data, grid, loc, bcs=None, t=0.0):
     return data
 
 
-def fill_halos(data, grid, loc, bcs=None, t=0.0, axes=(0, 1, 2), perm=None):
+def fill_halos(data, grid, loc, bcs=None, t=0.0, axes=(0, 1, 2)):
     """Fill all halo regions of `data`. Periodic axes first (reference
     fill_halo_regions.jl:57-95 ordering) so corner halos end up consistent.
     `axes` restricts the fill (e.g. (0, 1) for z-reduced free-surface
-    fields whose array has no z halo). ``perm``: physical permutation of
-    a transposed array (logical axis a at data axis perm[a]) — used by
-    the hydrostatic model's shallow-z (x, z, y) state layout."""
+    fields whose array has no z halo)."""
     if bcs is None:
         bcs = default_bcs(grid, loc)
     order = sorted((a for a in axes), key=lambda a: grid.topology[a] is not PERIODIC)
     pairs = ((bcs.west, bcs.east), (bcs.south, bcs.north), (bcs.bottom, bcs.top))
-    # periodic axes of PERMUTED 3D fields ride the in-place Pallas strip
-    # kernels on TPU (ops/fused_fill.py). Measured policy (r5): for the
-    # NATURAL layout the XLA slab DUS alias fine and the extra kernel
-    # launches are a net LOSS (256³ nonhydrostatic: 717 M pts/s with DUS
-    # vs 670 with strip kernels), so the strip path engages only for
-    # permuted (x,z,y) state — where the x fill's leading-dim strips are
-    # cheap and measured no worse — or when CLIMA_INPLACE_FILL=1 forces
-    # it. Values are bit-identical by construction either way.
-    from ..ops import fused_fill as _ff
-    use_fast = (getattr(data, "ndim", 0) == 3 and _ff._use_inplace()
-                and (perm is not None
-                     or os.environ.get("CLIMA_INPLACE_FILL"))
-                and not os.environ.get("CLIMA_NO_INPLACE_FILL"))
     for axis in order:
-        if (use_fast and grid.topology[axis] is PERIODIC
-                and _ff.supports_inplace_fill(grid, axis, perm)):
-            data = _ff.fill_periodic_axis_inplace(data, grid, axis, perm=perm)
-        else:
-            data = fill_halos_axis(data, grid, loc, axis, *pairs[axis], t=t,
-                                   perm=perm)
+        data = fill_halos_axis(data, grid, loc, axis, *pairs[axis], t=t)
     return data
 
 

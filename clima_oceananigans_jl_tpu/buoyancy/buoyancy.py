@@ -130,57 +130,20 @@ def buoyancy_y_term(buoyancy, grid, tracers):
     return -gy * st.iyf(buoyancy.buoyancy_perturbation(grid, tracers))
 
 
-def hydrostatic_pressure_anomaly(buoyancy, grid, tracers, perm=None):
+def hydrostatic_pressure_anomaly(buoyancy, grid, tracers):
     """pHY′ at centers from downward integration of z_dot_g_b = ĝ_z b̄ᶻ
     (reference update_hydrostatic_pressure.jl): with-halo array, halos
     zero-gradient filled by the caller. For tilted gravity only the
     vertical component enters pHY′; the x/y components are direct
-    tendency terms (buoyancy_x_term / buoyancy_y_term).
-
-    ``perm``: tracers stored with logical axis a at physical axis
-    perm[a] (the hydrostatic (x, z, y) state layout); the result comes
-    back in the same layout. The permuted path integrates with a plain
-    reversed cumsum — z sits in the cheap sublane dimension there, so
-    the MXU-matmul trick is unnecessary."""
-    from ..ops.permuted import PermutedGrid
+    tendency terms (buoyancy_x_term / buoyancy_y_term)."""
     from ..utils.location import W_LOC
-    import contextlib
-    g = PermutedGrid(grid, perm) if perm is not None else grid
-    ctx = (st.axis_permutation(perm) if perm is not None
-           else contextlib.nullcontext())
-    with ctx:
-        b = buoyancy.buoyancy_perturbation(g, tracers)
-        gz = buoyancy.gravity_unit_vector[2]
-        if gz != -1.0:
-            b = -gz * b
-        b_f = st.izf(b)                # at (C,C,F): face k between centers k−1,k
-        S = b_f * g.dz(W_LOC)          # b̄(k)·Δzᶠ(k) at faces
+    b = buoyancy.buoyancy_perturbation(grid, tracers)
+    gz = buoyancy.gravity_unit_vector[2]
+    if gz != -1.0:
+        b = -gz * b
+    b_f = st.izf(b)                    # at (C,C,F): face k between centers k−1,k
+    S = b_f * grid.dz(W_LOC)           # b̄(k)·Δzᶠ(k) at faces
     Nz, Hz = grid.Nz, grid.Hz
-    zax = 2 if perm is None else perm[2]
-    sl = [slice(None)] * 3
-    sl[zax] = slice(Hz + 1, Hz + Nz + 1)
-    S_int = S[tuple(sl)]               # faces 1..Nz
-    if perm is None and jax.default_backend() == "tpu" and Nz > 1:
-        # reversed cumulative sum as a triangular matmul — rides the MXU
-        # instead of a log-depth scan over the lane dimension
-        U = jnp.triu(jnp.ones((Nz, Nz), S_int.dtype)).T  # U[j,k]=1 for j≥k
-        ph_int = -jax.lax.dot_general(S_int, U, (((2,), (0,)), ((), ())),
-                                      preferred_element_type=S_int.dtype)
-    else:
-        ph_int = -jnp.flip(jnp.cumsum(jnp.flip(S_int, zax), zax), zax)
-    shape = (grid.total_shape if perm is None
-             else tuple(grid.total_shape[a] for a in
-                        _inv_perm_order(perm)))
-    out = jnp.zeros(shape, grid.dtype)
-    osl = [slice(None)] * 3
-    osl[zax] = slice(Hz, Hz + Nz)
-    return out.at[tuple(osl)].set(ph_int)
-
-
-def _inv_perm_order(perm):
-    """Logical axis stored at physical position p: physical shape[p] =
-    logical total_shape[a] where perm[a] = p."""
-    order = [0] * 3
-    for a, p in enumerate(perm):
-        order[p] = a
-    return order
+    S_int = S[:, :, Hz + 1:Hz + Nz + 1]  # faces 1..Nz
+    ph_int = -jnp.flip(jnp.cumsum(jnp.flip(S_int, 2), 2), 2)
+    return jnp.zeros(grid.total_shape, grid.dtype).at[:, :, Hz:Hz + Nz].set(ph_int)

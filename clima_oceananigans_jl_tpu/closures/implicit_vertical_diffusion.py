@@ -1,6 +1,6 @@
 """Vertically-implicit diffusion: backward-Euler column solve.
 
-TPU analog of /root/reference/src/TurbulenceClosures/
+Array analog of the reference's src/TurbulenceClosures/
 vertically_implicit_diffusion_solver.jl:44-70: after the explicit
 (advection + horizontal diffusion) substep, each prognostic field is
 updated by solving
@@ -10,7 +10,7 @@ updated by solving
 column-wise. The tridiagonal bands are built from κ evaluated at the
 staggered z-location opposite the field's (faces for z-centered fields,
 centers for w), and the batched Thomas solve (solvers/tridiagonal.py —
-two ``lax.scan``s with the full horizontal plane as the TPU vector batch)
+two ``lax.scan``s with the full horizontal plane as the batch)
 does the inversion. Zero-flux (Neumann) walls for z-centered fields;
 zero-Dirichlet boundary faces for w.
 """
@@ -170,17 +170,6 @@ def _vertical_coefficient(closure, name, diffusivities):
     if hasattr(closure, "vertical_kappa"):
         return closure.vertical_kappa(name, diffusivities)
     return closure.kappa_z_for(name)
-
-
-def implicit_step_is_noop(closure):
-    """True when ``implicit_step_fields`` is the identity for this
-    closure (static metadata — resolves at trace time). Used by the
-    models' interior fast lanes to skip the solve entirely."""
-    if closure is None:
-        return True
-    if isinstance(closure, (tuple, list)):
-        return all(implicit_step_is_noop(c) for c in closure)
-    return not getattr(closure, "vertically_implicit", False)
 
 
 def implicit_step_fields(solution, grid, locs, closure, dt, diffusivities=None,

@@ -1,7 +1,7 @@
 """Background fields: a fixed (optionally time-dependent) environment the
 prognostic fields perturb.
 
-TPU re-design of /root/reference/src/Fields/background_fields.jl
+Array re-design of the reference's src/Fields/background_fields.jl
 (BackgroundField :18-49): instead of per-point kernel closures, a
 ``BackgroundField`` is materialized as a whole with-halo array at the
 prognostic field's staggered location each time the tendencies are

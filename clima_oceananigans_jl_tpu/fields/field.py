@@ -1,6 +1,6 @@
 """Fields: located arrays with halos and boundary conditions.
 
-TPU re-design of /root/reference/src/Fields/field.jl:16-30. A ``Field``
+Array re-design of the reference's src/Fields/field.jl:16-30. A ``Field``
 is a small pytree of ``(data, bcs)`` with static location ``loc``; the
 grid is NOT stored in the field (models hold one grid; functions take it
 explicitly) so jitted signatures stay small. ``data`` always includes

@@ -1,7 +1,7 @@
 """Cubed-sphere grids: 6 conformal (or gnomonic) faces batched on a
 leading axis.
 
-TPU re-design of /root/reference/src/CubedSpheres/ +
+Array re-design of the reference's src/CubedSpheres/ +
 Grids/conformal_cubed_sphere_face_grid.jl: instead of 6 separate face
 structs with per-face kernel launches and hand-coded rotated halo copies
 (cubed_sphere_halo_filling.jl:1-206), faces live on a leading batch axis

@@ -1,6 +1,6 @@
 """Latitude-longitude (spherical-shell) grids with precomputed metrics.
 
-TPU re-design of /root/reference/src/Grids/latitude_longitude_grid.jl
+Array re-design of the reference's src/Grids/latitude_longitude_grid.jl
 (struct :5-44, ``precompute_metrics`` kwarg :92): curvilinear horizontal
 metrics Δxᶠᶜᵃ…Azᶜᶜᵃ are always precomputed here (memory is cheap relative
 to recomputing trig in every stencil; XLA streams them alongside the

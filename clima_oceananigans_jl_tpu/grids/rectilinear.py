@@ -1,6 +1,6 @@
 """Rectilinear staggered grids (regular or stretched per axis).
 
-TPU-native re-design of the reference's ``RectilinearGrid``
+Array re-design of the reference's ``RectilinearGrid``
 (/root/reference/src/Grids/rectilinear_grid.jl:1-58):
 
 * No OffsetArrays — every field array carries explicit halos of width
@@ -98,10 +98,7 @@ def _build_axis(n, h, topo, extent=None, spec=None, *, dtype):
     if regular:
         # canonicalize: regular-axis spacing arrays hold EXACTLY extent/n
         # everywhere (np.diff of linspace varies in the last ulp). This
-        # makes every metric bitwise position-independent, which is what
-        # lets the fused Pallas kernels collapse regular-axis metrics to
-        # compile-time scalars / (y, z) profile rows (ops/kernel_grid.py)
-        # while staying bit-identical to the jnp path.
+        # makes every metric bitwise position-independent.
         const = float(xF[-1] - xF[0]) / n
         dc = np.full_like(dc, const)
         df = np.full_like(df, const)
@@ -198,8 +195,8 @@ class RectilinearGrid:
 
     def interior(self, data):
         """Interior view of a with-halo array (last-index convention: N
-        points). Arrays already of interior shape (e.g. the fused AB2
-        step's halo-free G storage) pass through unchanged."""
+        points). Arrays already of interior shape pass through
+        unchanged."""
         if data.ndim == 3 and tuple(data.shape) == tuple(self.shape):
             return data
         sl = tuple(slice(h, h + n) for h, n in zip(self.halo, self.shape))

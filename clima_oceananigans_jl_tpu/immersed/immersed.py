@@ -1,11 +1,11 @@
 """Immersed boundaries: masked topography on any grid.
 
-TPU re-design of /root/reference/src/ImmersedBoundaries/
+Array re-design of the reference's src/ImmersedBoundaries/
 (ImmersedBoundaries.jl:103, grid_fitted_immersed_boundaries.jl:39,137,
 mask_immersed_field.jl, conditional_fluxes.jl): solid geometry is a set
 of precomputed boolean masks — one per staggered location — and masking
 is a ``jnp.where`` applied to fields and tendencies after each update
-(very natural on TPU: branch-free, fused by XLA). A velocity face is
+(branch-free, fused by XLA). A velocity face is
 solid when either adjacent cell center is solid (the reference's
 "peripheral node" rule), which zeroes advective/diffusive transport
 through the boundary.
@@ -97,7 +97,7 @@ class ImmersedBoundary:
 
 @jax.tree_util.register_pytree_node_class
 class ImmersedGrid:
-    """Grid wrapper carrying an immersed boundary — the TPU analog of the
+    """Grid wrapper carrying an immersed boundary — the array analog of the
     reference's ImmersedBoundaryGrid (ImmersedBoundaries.jl:103). Models
     wrap their (halo-inflated) grid in this internally when an immersed
     boundary is supplied; everything forwards to the parent grid, and

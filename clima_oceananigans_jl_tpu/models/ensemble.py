@@ -1,6 +1,6 @@
 """Ensemble batching: vmap over a leading member axis.
 
-TPU-native replacement for the reference's ``slice_ensemble_model_mode.jl``
+Array replacement for the reference's ``slice_ensemble_model_mode.jl``
 and ``single_column_model_mode.jl`` (ensemble×y×z grids for parameter
 calibration): instead of packing members into a spatial axis, the state
 pytree gains a leading member axis and the whole jitted step is ``vmap``ed

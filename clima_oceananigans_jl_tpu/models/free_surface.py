@@ -1,6 +1,6 @@
 """Free-surface treatments for the hydrostatic model.
 
-TPU re-design of the reference free-surface family:
+Array re-design of the reference free-surface family:
 * ``ExplicitFreeSurface`` (explicit_free_surface.jl): ∂t η = −∇h·U in the
   same AB2 sweep; g∂η appears in the momentum tendency.
 * ``ImplicitFreeSurface`` (implicit_free_surface.jl:36-80): solve
@@ -19,7 +19,6 @@ All free-surface state (η, U̅, …) are with-halo ``(X, Y, 1)`` arrays.
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import jax
 import jax.numpy as jnp
@@ -38,27 +37,16 @@ def fill2d(arr, grid, loc, bcs=None, t=0.0):
     return fill_halos(arr, grid, loc, bcs, t, axes=(0, 1))
 
 
-def depth_integral(grid, q, loc, perm=None):
-    """∫ q dz over interior z (with-halo (X,Y,1) result). ``perm``: q is
-    stored with logical axis a at physical axis perm[a] (the hydrostatic
-    (x, z, y) layout); the RESULT is always the natural (X, Y, 1)."""
+def depth_integral(grid, q, loc):
+    """∫ q dz over interior z (with-halo (X,Y,1) result)."""
     Hz, Nz = grid.Hz, grid.Nz
-    if perm is None:
-        qdz = q * grid.dz(loc)
-        return jnp.sum(qdz[:, :, Hz:Hz + Nz], axis=2, keepdims=True)
-    from ..ops.permuted import PermutedGrid
-    zax = perm[2]
-    qdz = q * PermutedGrid(grid, perm).dz(loc)
-    sl = [slice(None)] * 3
-    sl[zax] = slice(Hz, Hz + Nz)
-    out = jnp.sum(qdz[tuple(sl)], axis=zax)  # 2D, axes in (x, y) order
-    return out[:, :, None] if perm[0] < perm[1] else out.T[:, :, None]
+    qdz = q * grid.dz(loc)
+    return jnp.sum(qdz[:, :, Hz:Hz + Nz], axis=2, keepdims=True)
 
 
-def barotropic_mode(grid, u, v, perm=None):
+def barotropic_mode(grid, u, v):
     """(U, V) = (∫u dz, ∫v dz) (reference barotropic_mode_kernel!)."""
-    return (depth_integral(grid, u, U_LOC, perm=perm),
-            depth_integral(grid, v, V_LOC, perm=perm))
+    return depth_integral(grid, u, U_LOC), depth_integral(grid, v, V_LOC)
 
 
 def column_depths(grid):
@@ -318,12 +306,10 @@ class SplitExplicitFreeSurface:
         Returns (η̅-filtered η, U̅, V̅) — reference
         split_explicit_free_surface_kernels.jl:15-58 + settings weights.
 
-        The loop runs on SQUEEZED rank-2 (x, y) arrays: the (x, y, 1)
-        storage shape puts a size-1 dimension minor-most, and XLA's
-        T(1,128) tiling for it wastes 7/8 of every vector register —
-        measured 43.5 ms vs 6.2 ms for 30 substeps of a 1440×608 η on one
-        v5e chip. Metric arrays are squeezed alongside; the halo-fill
-        slab machinery is rank-agnostic along x/y."""
+        The loop runs on SQUEEZED rank-2 (x, y) arrays, which keeps a
+        size-1 dimension out of the minor-most position of every loop
+        array. Metric arrays are squeezed alongside; the halo-fill slab
+        machinery is rank-agnostic along x/y."""
         g = self.gravitational_acceleration
         n = self.substeps
         dtau = 2.0 * dt / n
@@ -338,22 +324,6 @@ class SplitExplicitFreeSurface:
         msq = (lambda m: m[..., 0] if getattr(m, "ndim", 0) == 3 else m) \
             if squeeze else (lambda m: m)
         eta0, U0, V0, GU, GV = map(sq, (eta0, U0, V0, GU, GV))
-
-        # whole-loop Pallas kernel: all N substeps VMEM-resident in ONE
-        # call (ops/fused_barotropic.py; bit-identical by construction —
-        # the XLA fori_loop streams every 2D field through HBM each
-        # substep). Hardware-validated: ¼° flagship 31.3 → 28.6 ms/step
-        # (663 → 724 M pts/s). CLIMA_NO_FUSED_BAROTROPIC=1 opts out; the
-        # XLA loop remains the portable non-TPU path.
-        from ..ops import fused_barotropic as _fb
-        interpret = bool(os.environ.get("CLIMA_FUSED_BAROTROPIC_INTERPRET"))
-        if (squeeze and not os.environ.get("CLIMA_NO_FUSED_BAROTROPIC")
-                and (interpret or jax.default_backend() == "tpu")
-                and _fb.fused_substep_ok(grid, eta_bcs)):
-            eta_av, U_av, V_av = _fb.fused_substep_eta(
-                grid, eta_bcs, eta0, U0, V0, GU, GV, Hfc, Hcf,
-                g, dtau, wv, wf, n, interpret=interpret or None)
-            return eta_av[:, :, None], U_av[:, :, None], V_av[:, :, None]
         Hfc, Hcf = sq(Hfc), sq(Hcf)
         dxu, dyv = msq(grid.dx(U_LOC)), msq(grid.dy(V_LOC))
         dyu, dxv = msq(grid.dy(U_LOC)), msq(grid.dx(V_LOC))
@@ -379,35 +349,8 @@ class SplitExplicitFreeSurface:
             return eta_av[:, :, None], U_av[:, :, None], V_av[:, :, None]
         return eta_av, U_av, V_av
 
-    def corrector(self, grid, u, v, U_av, V_av, perm=None):
-        """u += (U̅ − ∫u dz)/H (reference barotropic_split_explicit_corrector!).
-        ``perm``: u/v stored permuted (hydrostatic (x, z, y) layout); the
-        2D increments are transposed to broadcast (cheap — (X, Y, 1))."""
-        return self._correct(grid, u, v, U_av, V_av, perm, None)
-
-    def corrector_interior(self, grid, ui, vi, U_av, V_av, perm=None):
-        """``corrector`` on x/y-INTERIOR arrays (full-z windows, the
-        fused-advance output layout): identical arithmetic on the
-        interior points — the depth integral reads only interior z, and
-        du at interior x/y reads only interior U̅/H — without the
-        pad→full-array round trip (the fused hydrostatic step pads ONCE
-        after this correction)."""
-        sl = (slice(grid.Hx, grid.Hx + grid.Nx),
-              slice(grid.Hy, grid.Hy + grid.Ny))
-        return self._correct(grid, ui, vi, U_av, V_av, perm, sl)
-
-    def _correct(self, grid, u, v, U_av, V_av, perm, sl):
-        """Shared corrector arithmetic; ``sl`` restricts the 2D factors
-        to the x/y interior (None = full with-halo arrays). Both public
-        entry points MUST stay this one expression tree — the interior
-        fast lane's bit-equality with the reference path depends on it."""
+    def corrector(self, grid, u, v, U_av, V_av):
+        """u += (U̅ − ∫u dz)/H (reference barotropic_split_explicit_corrector!)."""
         Hfc, Hcf = column_depths(grid)
-        U, V = barotropic_mode(grid, u, v, perm=perm)
-        if sl is not None:
-            Hfc, Hcf, U_av, V_av = (a[sl] for a in (Hfc, Hcf, U_av, V_av))
-        du = (U_av - U) / Hfc
-        dv = (V_av - V) / Hcf
-        if perm is not None:
-            du = jnp.transpose(du, perm)
-            dv = jnp.transpose(dv, perm)
-        return u + du, v + dv
+        U, V = barotropic_mode(grid, u, v)
+        return u + (U_av - U) / Hfc, v + (V_av - V) / Hcf

@@ -1,6 +1,6 @@
 """Hydrostatic free-surface (primitive-equation) model.
 
-TPU re-design of /root/reference/src/Models/HydrostaticFreeSurfaceModels/
+Array re-design of the reference's src/Models/HydrostaticFreeSurfaceModels/
 (hydrostatic_free_surface_model.jl, hydrostatic_free_surface_tendency_
 kernel_functions.jl, hydrostatic_free_surface_ab2_step.jl:14-27,
 compute_w_from_continuity.jl, barotropic_pressure_correction.jl):
@@ -18,13 +18,11 @@ pure function of ``(state, Δt)``.
 """
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 
 from ..advection.fluxes import div_Uc, div_vu, div_vv
-from ..advection.schemes import AdvectionScheme, CenteredSecondOrder
+from ..advection.schemes import CenteredSecondOrder
 from ..advection.vector_invariant import VectorInvariant
 from ..boundary_conditions.bcs import (FieldBCs, FluxBC, OpenBC, apply_flux_bcs,
                                        apply_immersed_flux_bcs,
@@ -44,14 +42,44 @@ from .free_surface import (ETA_LOC, ExplicitFreeSurface, ImplicitFreeSurface,
                            div_xy_2d, fill2d, grad_x, grad_y)
 
 
+def hydrostatic_advective_core(grid, scheme, tracer_scheme, coriolis,
+                               tracer_names, u, v, w, tracers, pHY=None):
+    """The advective/Coriolis/∂pHY′ tendency core (reference
+    hydrostatic_free_surface_tendency_kernel_functions.jl:1-80) as one
+    whole-array function of the grid-metric protocol."""
+    if isinstance(scheme, VectorInvariant):
+        Gu = -scheme.U_dot_grad_u(grid, u, v, w)
+        Gv = -scheme.U_dot_grad_v(grid, u, v, w)
+    elif scheme is None:
+        Gu = jnp.zeros_like(u)
+        Gv = jnp.zeros_like(v)
+    else:  # conservative flux form
+        Gu = -div_vu(grid, scheme, u, v, w)
+        Gv = -div_vv(grid, scheme, u, v, w)
+
+    if coriolis is not None:
+        Gu = Gu - coriolis.x_f_cross_U(grid, u, v, w)
+        Gv = Gv - coriolis.y_f_cross_U(grid, u, v, w)
+
+    if pHY is not None:
+        Gu = Gu - st.dxf(pHY) / grid.dx(U_LOC)
+        Gv = Gv - st.dyf(pHY) / grid.dy(V_LOC)
+
+    G = {"u": Gu, "v": Gv}
+    for name in tracer_names:
+        c = tracers[name]
+        G[name] = (-div_Uc(grid, tracer_scheme, u, v, w, c)
+                   if tracer_scheme is not None else jnp.zeros_like(c))
+    return G
+
+
 @jax.tree_util.register_pytree_node_class
 class HydrostaticFreeSurfaceModel:
     def __init__(self, grid, momentum_advection="default",
                  tracer_advection="default",
                  free_surface=None, buoyancy=None, coriolis=None, closure=None,
                  tracers=None, forcing=None, boundary_conditions=None,
-                 particles=None, immersed_boundary=None,
-                 fused_advection="auto"):
+                 particles=None, immersed_boundary=None):
         if grid.topology[2] is FLAT:
             raise ValueError("HydrostaticFreeSurfaceModel needs a z direction")
         # None explicitly disables a term (reference `advection = nothing`)
@@ -73,26 +101,7 @@ class HydrostaticFreeSurfaceModel:
         self.tracer_names = tuple(names)
         h_req = max(getattr(self.momentum_advection, "required_halo", 1),
                     getattr(self.tracer_advection, "required_halo", 1), 1)
-        want_fused = (fused_advection is True
-                      or (fused_advection == "auto"
-                          and jax.default_backend() == "tpu"))
-        hx = hy = h_req
-        if want_fused:
-            # fused Pallas tendencies: x/y halos multiples of 4 so the
-            # tiled windows' sublane dims are 8-divisible in every block
-            # layout (ops/fused_hydrostatic.py); with an immersed boundary
-            # the conditional fluxes read ±(buffer+1), which must stay
-            # in-window
-            if immersed_boundary is not None:
-                from ..advection.schemes import AdvectionScheme
-                hb = max((s.buffer + 1 for s in (self.momentum_advection,
-                                                 self.tracer_advection)
-                          if isinstance(s, AdvectionScheme) and s.buffer > 0),
-                         default=0)
-                hx = hy = max(h_req, hb)
-            hx = -(-hx // 4) * 4
-            hy = -(-hy // 4) * 4
-        self.grid = grid.with_halo((hx, hy, h_req))
+        self.grid = grid.with_halo((h_req, h_req, h_req))
         # immersed boundary: masks built on the final grid, grid wrapped
         # (reference ImmersedBoundaryGrid) so flux-form advection applies
         # conditional near-solid fluxes; PartialCellBottom additionally
@@ -129,63 +138,6 @@ class HydrostaticFreeSurfaceModel:
             wb.top = FluxBC()
         self.w_bcs = wb
         self.pressure_bcs = regularize_bcs(self.grid, CENTER, None)
-        from ..ops.fused_hydrostatic import (supports_fused_hydro_advance,
-                                             supports_fused_hydrostatic,
-                                             supports_inkernel_wphy)
-        self.fused_advection = bool(want_fused
-                                    and supports_fused_hydrostatic(self))
-        self.state_layout = self._pick_state_layout()
-        # w-from-continuity and pHY′ rebuilt inside the fused kernel:
-        # the state carries NEITHER (diagnostics recompute on demand)
-        self.wphy_in_kernel = supports_inkernel_wphy(self)
-        # fused ADVANCE: tendencies + the AB2 substep in ONE Pallas pass;
-        # G_prev is stored x/y-INTERIOR in the kernel layout (the substep
-        # never rereads ψ/G/G⁻ from HBM and G is never padded)
-        self.fused_advance = supports_fused_hydro_advance(self)
-
-    def _pick_state_layout(self):
-        """(x, z, y) state storage for shallow-z grids: the natural
-        (x, y, z) layout puts z in the 128-padded lane dimension, so a
-        zt ≈ 30 field streams 4.3× its useful bytes through EVERY XLA
-        pass (fills, w-from-continuity, pHY′, substep). Storing the 3D
-        state transposed (y in lanes, z in 8-padded sublanes) removes
-        that tax AND matches the fused kernel's "zy" block layout, so the
-        per-step transposes around the kernel vanish too (ops/permuted.py).
-        Gated to configurations whose step stays fully layout-aware."""
-        from ..ops.fused_hydrostatic import preferred_hydro_layout, zy_tiling_ok
-        if os.environ.get("CLIMA_NO_XZY"):
-            return None
-        if not self.fused_advection:
-            return None
-        if preferred_hydro_layout(self) != "zy" or not zy_tiling_ok(self):
-            return None
-        parent = getattr(self.grid, "parent", self.grid)
-        if parent.dist != (None, None, None):
-            return None
-        from ..ops.fused_hydrostatic import kernel_closure
-        if self.closure is not None and (
-                kernel_closure(self) is None
-                or getattr(self.closure, "vertically_implicit", False)):
-            # in-kernel diffusion keeps the permuted step layout-aware;
-            # the implicit vertical solve assumes natural z-last arrays
-            return None
-        if (self.immersed_boundary is not None
-                or self.particles is not None or self.forcing):
-            return None
-        # tendency-level boundary fluxes and discrete-form BCs evaluate
-        # in the natural orientation — keep those configs there
-        for bcs in list(self.bcs.values()) + [self.w_bcs]:
-            for _a, _s, bc in bcs.sides():
-                if bc is not None and (bc.discrete or
-                                       (bc.kind == "flux" and bc.value is not None)):
-                    return None
-        return "xzy"
-
-    @property
-    def _perm(self):
-        """Physical axis permutation of the 3D state (None = natural)."""
-        from ..ops.permuted import XZY
-        return XZY if self.state_layout == "xzy" else None
 
     # -- pytree ---------------------------------------------------------------
     def tree_flatten(self):
@@ -195,8 +147,7 @@ class HydrostaticFreeSurfaceModel:
         fk = tuple(sorted(self.forcing))
         static = (self.momentum_advection, self.tracer_advection,
                   self.tracer_names, self.ab2_chi, fk,
-                  tuple(self.forcing[k] for k in fk), self.fused_advection,
-                  self.state_layout, self.wphy_in_kernel, self.fused_advance)
+                  tuple(self.forcing[k] for k in fk))
         return leaves, static
 
     @classmethod
@@ -206,8 +157,7 @@ class HydrostaticFreeSurfaceModel:
          obj.bcs, obj.eta_bcs, obj.w_bcs, obj.pressure_bcs,
          obj.particles, obj.immersed_boundary) = leaves
         (obj.momentum_advection, obj.tracer_advection, obj.tracer_names,
-         obj.ab2_chi, fk, fv, obj.fused_advection, obj.state_layout,
-         obj.wphy_in_kernel, obj.fused_advance) = static
+         obj.ab2_chi, fk, fv) = static
         obj.forcing = dict(zip(fk, fv))
         return obj
 
@@ -224,49 +174,6 @@ class HydrostaticFreeSurfaceModel:
     @property
     def _explicit_fs(self):
         return isinstance(self.free_surface, ExplicitFreeSurface)
-
-    # -- fused-advance interior G_prev helpers ---------------------------------
-    def _int_cut(self):
-        """x/y-interior slicer in the state layout (z keeps its halos —
-        G z-halo garbage is refilled with ψ′'s halos every step)."""
-        g = self.grid
-        xs = slice(g.Hx, g.Hx + g.Nx)
-        ys = slice(g.Hy, g.Hy + g.Ny)
-        return (xs, slice(None), ys) if self._perm is not None \
-            else (xs, ys, slice(None))
-
-    def _int_pad(self):
-        g = self.grid
-        return (((g.Hx, g.Hx), (0, 0), (g.Hy, g.Hy))
-                if self._perm is not None
-                else ((g.Hx, g.Hx), (g.Hy, g.Hy), (0, 0)))
-
-    def _coerce_gprev(self, state):
-        """Cross-gate checkpoints: slice a halo-shaped G_prev to interior
-        when this model runs the fused advance, pad an interior one with
-        zero halos when it doesn't (both exact — G x/y halos are never
-        read, and ψ′ halos are refilled before any read)."""
-        gp = state.get("G_prev")
-        if not isinstance(gp, dict):
-            return state
-        g = self.grid
-        zt = g.total_shape[2]
-        full = ((g.total_shape[0], zt, g.total_shape[1])
-                if self._perm is not None else g.total_shape)
-        inter = ((g.Nx, zt, g.Ny) if self._perm is not None
-                 else (g.Nx, g.Ny, zt))
-        if full == inter:
-            return state
-
-        def c(a):
-            if getattr(a, "ndim", 0) != 3:
-                return a
-            if self.fused_advance and tuple(a.shape) == full:
-                return a[self._int_cut()]
-            if not self.fused_advance and tuple(a.shape) == inter:
-                return jnp.pad(a, self._int_pad())
-            return a
-        return dict(state, G_prev={n: c(v) for n, v in gp.items()})
 
     def initial_state(self, clock=None, eta=0.0, **values):
         from ..fields.field import new_field, set_field
@@ -285,13 +192,7 @@ class HydrostaticFreeSurfaceModel:
             eta_arr = eta_arr + eta
         eta_arr = fill2d(eta_arr, g, ETA_LOC, self.eta_bcs)
         clock = clock or Clock(jnp.zeros((), g.dtype), jnp.zeros((), jnp.int32))
-        if self._perm is not None:
-            from ..ops.permuted import permute
-            sol = {k: permute(v, self._perm) for k, v in sol.items()}
         zeros = {k: jnp.zeros_like(v) for k, v in sol.items()}
-        if self.fused_advance:
-            cut = self._int_cut()
-            zeros = {k: v[cut] for k, v in zeros.items()}
         if self._explicit_fs:
             zeros["eta"] = jnp.zeros_like(eta_arr)
         state = dict(solution=sol, eta=eta_arr, clock=clock, G_prev=zeros,
@@ -302,51 +203,19 @@ class HydrostaticFreeSurfaceModel:
 
     def fill_all_halos(self, sol, t=0.0):
         locs = self._locs()
-        return {name: fill_halos(arr, self.grid, locs[name], self.bcs[name],
-                                 t, perm=self._perm)
+        return {name: fill_halos(arr, self.grid, locs[name], self.bcs[name], t)
                 for name, arr in sol.items()}
 
     def compute_w(self, sol, axes=(0, 1, 2)):
         """w from continuity, integrated bottom-up
         (reference compute_w_from_continuity.jl:30-36). ``axes``
         restricts the final halo fill (the overlap bulk pass fills only
-        the uncut axes, so no collectives are issued). Runs in the
-        model's state layout: under (x, z, y) the divergence uses the
-        permuted stencils/metrics and the integral is a plain cumsum —
-        z sits in the cheap sublane dimension there."""
+        the uncut axes, so no collectives are issued)."""
         g = self.grid
         Hz, Nz = g.Hz, g.Nz
-        perm = self._perm
-        if perm is not None:
-            from ..ops import stencil as st_
-            from ..ops.permuted import PermutedGrid
-            gp = PermutedGrid(g, perm)
-            zax = perm[2]
-            with st_.axis_permutation(perm):
-                d = op.div_xy_ccc(sol["u"], sol["v"], gp)
-                incr = jnp.broadcast_to(gp.dz(CENTER), d.shape) * d
-            sl = [slice(None)] * 3
-            sl[zax] = slice(Hz, Hz + Nz)
-            cum = jnp.cumsum(incr[tuple(sl)], axis=zax)
-            # physical shape derived from perm (physical axis p holds
-            # logical axis perm.index(p)); for XZY this is (x, z, y)
-            w = jnp.zeros(tuple(g.total_shape[perm.index(p)]
-                                for p in range(3)), g.dtype)
-            wsl = [slice(None)] * 3
-            wsl[zax] = slice(Hz + 1, Hz + Nz + 1)
-            w = w.at[tuple(wsl)].set(-cum)
-            return fill_halos(w, g, W_LOC, self.w_bcs, axes=axes, perm=perm)
         d = op.div_xy_ccc(sol["u"], sol["v"], g)          # (X,Y,Z) at centers
         incr = (jnp.broadcast_to(g.dz(CENTER), d.shape) * d)[:, :, Hz:Hz + Nz]
-        if jax.default_backend() == "tpu" and Nz > 1:
-            # cumulative sum as a triangular matmul — rides the MXU
-            # instead of a log-depth scan (same trick as the pHY′
-            # integral, buoyancy.py hydrostatic_pressure_anomaly)
-            L = jnp.tril(jnp.ones((Nz, Nz), incr.dtype)).T  # L[j,k]=1, j≤k
-            cum = jax.lax.dot_general(incr, L, (((2,), (0,)), ((), ())),
-                                      preferred_element_type=incr.dtype)
-        else:
-            cum = jnp.cumsum(incr, axis=2)                 # ∫ up through cell k
+        cum = jnp.cumsum(incr, axis=2)                     # ∫ up through cell k
         w = jnp.zeros(g.total_shape, g.dtype)
         # face k+1 (array index Hz+1+k) = −cumsum through cell k; face Hz = 0
         w = w.at[:, :, Hz + 1: Hz + Nz + 1].set(-cum)
@@ -382,11 +251,6 @@ class HydrostaticFreeSurfaceModel:
         if self.immersed_boundary is not None:
             state = self.immersed_boundary.mask_state(self, state)
             sol = state["solution"]
-        if self.wphy_in_kernel:
-            # w and pHY′ are rebuilt inside the fused tendency kernel
-            # from this (filled, masked) solution every step — the state
-            # carries neither, and diagnostics recompute on demand
-            return state
         state = dict(state, w=self.compute_w(sol))
         tr = {n: sol[n] for n in self.tracer_names}
         diff = compute_closure_diffusivities(
@@ -395,10 +259,8 @@ class HydrostaticFreeSurfaceModel:
             state = dict(state, diffusivities=diff)
         if self.buoyancy is not None:
             tr = {n: sol[n] for n in self.tracer_names}
-            ph = hydrostatic_pressure_anomaly(self.buoyancy, self.grid, tr,
-                                              perm=self._perm)
-            ph = fill_halos(ph, self.grid, CENTER, self.pressure_bcs, t,
-                            perm=self._perm)
+            ph = hydrostatic_pressure_anomaly(self.buoyancy, self.grid, tr)
+            ph = fill_halos(ph, self.grid, CENTER, self.pressure_bcs, t)
             state = dict(state, pHY=ph)
         return state
 
@@ -475,7 +337,6 @@ class HydrostaticFreeSurfaceModel:
                 gsub = grid.subgrid_along(axis, start_int, H)
                 ms = _copy.copy(self)
                 ms.grid = gsub
-                ms.fused_advection = False  # strips are tiny; jnp path
                 if self.immersed_boundary is not None:
                     ms.immersed_boundary = gsub.immersed
                 sub = {k: (jax.tree_util.tree_map(
@@ -499,7 +360,7 @@ class HydrostaticFreeSurfaceModel:
         sol = state["solution"]
         u, v = sol["u"], sol["v"]
         w = state.get("w")
-        if w is None and not self.wphy_in_kernel:
+        if w is None:
             w = self.compute_w(sol)
         clock = state["clock"]
         fs = self.free_surface
@@ -507,37 +368,20 @@ class HydrostaticFreeSurfaceModel:
         ph = (state["pHY"] if self.buoyancy is not None and "pHY" in state
               else None)
 
-        from ..ops.fused_hydrostatic import (fused_hydrostatic_tendencies,
-                                             hydrostatic_advective_core,
-                                             kernel_closure)
-        ker_cl = None
-        if (self.fused_advection
-                and getattr(grid, "dist", (None,) * 3) == (None, None, None)):
-            # ONE Pallas pass: advection + Coriolis + ∂pHY′ — and the
-            # explicit part of a constant-coefficient ScalarDiffusivity —
-            # for every prognostic field; other closures/forcings/BC
-            # fluxes are added below
-            ker_cl = kernel_closure(self)
-            G = fused_hydrostatic_tendencies(self, state)
-        else:
-            G = hydrostatic_advective_core(grid, self.momentum_advection,
-                                           self.tracer_advection,
-                                           self.coriolis, self.tracer_names,
-                                           u, v, w, tr, pHY=ph)
+        G = hydrostatic_advective_core(grid, self.momentum_advection,
+                                       self.tracer_advection, self.coriolis,
+                                       self.tracer_names, u, v, w, tr, pHY=ph)
         Gu, Gv = G["u"], G["v"]
 
         if self._explicit_fs:
             g_const = fs.gravitational_acceleration
             gex = g_const * grad_x(grid, state["eta"])   # (X, Y, 1)
             gey = g_const * grad_y(grid, state["eta"])
-            if self._perm is not None:
-                gex = jnp.transpose(gex, self._perm)
-                gey = jnp.transpose(gey, self._perm)
             Gu = Gu - gex
             Gv = Gv - gey
 
         diff = state.get("diffusivities")
-        if self.closure is not None and ker_cl is None:
+        if self.closure is not None:
             Gu = Gu + momentum_diffusion(u, grid, U_LOC, self.closure, diff)
             Gv = Gv + momentum_diffusion(v, grid, V_LOC, self.closure, diff)
 
@@ -546,7 +390,7 @@ class HydrostaticFreeSurfaceModel:
         for name in self.tracer_names:
             c = sol[name]
             Gc = G[name]
-            if self.closure is not None and ker_cl is None:
+            if self.closure is not None:
                 Gc = Gc + tracer_diffusion(c, grid, name, self.closure, diff)
                 closures = (self.closure if isinstance(self.closure, (tuple, list))
                             else (self.closure,))
@@ -557,13 +401,6 @@ class HydrostaticFreeSurfaceModel:
                         Gc = Gc + cl.tke_tendency(grid, dict(sol, w=w), d, trd)
             G[name] = Gc
 
-        if w is None and any(
-                bc is not None and bc.discrete
-                for bcs in self.bcs.values() for _a, _s, bc in bcs.sides()):
-            # wphy_in_kernel carries no w in the state, but discrete-form
-            # (field-dependent) flux BCs may read fields["w"] — rebuild it
-            # on demand (only traced for configs that actually need it)
-            w = self.compute_w(sol)
         fields = dict(sol, w=w, eta=state["eta"])
         locs = self._locs()
         for name in self.prognostic_names():
@@ -581,72 +418,24 @@ class HydrostaticFreeSurfaceModel:
         return G
 
     # -- stepping ---------------------------------------------------------------
-    def _coerce_layout(self, state):
-        """Convert cross-layout state (e.g. a checkpoint written on a
-        backend with the other state layout) into this model's layout.
-        Ambiguous when Yt == Zt — then the state is assumed correct."""
-        xt, yt, zt = self.grid.total_shape
-        u = state["solution"]["u"]
-        if yt == zt or u.ndim != 3:
-            return state
-        from ..ops.permuted import permute, unpermute
-        want = (xt, zt, yt) if self._perm is not None else (xt, yt, zt)
-        other = (xt, yt, zt) if self._perm is not None else (xt, zt, yt)
-        if tuple(u.shape) == want:
-            return state
-        conv = permute if self._perm is not None else unpermute
-
-        def c(a):
-            return (conv(a) if getattr(a, "ndim", 0) == 3
-                    and tuple(a.shape) == other else a)
-        out = dict(state)
-        for k in ("solution", "G_prev"):
-            if k in out and isinstance(out[k], dict):
-                out[k] = {n: c(v) for n, v in out[k].items()}
-        for k in ("w", "pHY"):
-            if k in out:
-                out[k] = c(out[k])
-        return out
-
     def step(self, state, dt):
         """Quasi-AB2 with the free-surface family split out (reference
         hydrostatic_free_surface_ab2_step.jl:14-27)."""
         grid = self.grid
         fs = self.free_surface
-        state = self._coerce_layout(state)
-        state = self._coerce_gprev(state)
         clock0 = state["clock"]
         euler = (clock0.iteration == 0) | (jnp.abs(state["previous_dt"] - dt) > 1e-14)
         chi = jnp.where(euler, -0.5, self.ab2_chi)
 
-        from ..closures.implicit_vertical_diffusion import implicit_step_is_noop
-        fadv = self.fused_advance and not getattr(self, "halo_overlap", False)
-        # interior fast lane (split-explicit only): when the implicit
-        # solve is a no-op, u/v stay as fused-kernel x/y-interiors
-        # through the barotropic corrector and are padded ONCE after it —
-        # skips the pad→full-corrector round trip (~0.6 GB/step at ¼°)
-        int_corr = (fadv and isinstance(fs, SplitExplicitFreeSurface)
-                    and implicit_step_is_noop(self.closure))
         if getattr(self, "halo_overlap", False):
             G, state = self.tendencies_overlapped(state)
-        elif fadv:
-            # ONE Pallas pass computes G AND the AB2 substep (ψ′, G as
-            # x/y-interior arrays in the state layout); ψ′ is padded back
-            # to halo shape (the zero halos are refilled by update_state
-            # before any read), G stays interior as next step's G_prev
-            from ..ops.fused_hydrostatic import fused_hydrostatic_tendencies
-            stepped_f, G = fused_hydrostatic_tendencies(
-                self, state, advance=(dt, euler))
-            if not int_corr:
-                stepped_f = {n: jnp.pad(a, self._int_pad())
-                             for n, a in stepped_f.items()}
         else:
             G = self.tendencies(state)
         G_prev = state["G_prev"]
 
         if self._explicit_fs:
             U, V = barotropic_mode(grid, state["solution"]["u"],
-                                   state["solution"]["v"], perm=self._perm)
+                                   state["solution"]["v"])
             G["eta"] = -div_xy_2d(grid, U, V)
             sol_all = dict(state["solution"], eta=state["eta"])
             stepped = ab2_substep(sol_all, G, G_prev, dt, self.ab2_chi, euler)
@@ -659,63 +448,36 @@ class HydrostaticFreeSurfaceModel:
         elif isinstance(fs, SplitExplicitFreeSurface):
             # barotropic mode of uⁿ (before the baroclinic step)
             U0, V0 = barotropic_mode(grid, state["solution"]["u"],
-                                     state["solution"]["v"], perm=self._perm)
+                                     state["solution"]["v"])
             # combined AB2 tendencies for the barotropic forcing
             c1, c2 = 1.5 + chi, 0.5 + chi
-            GU, _ = barotropic_mode(grid, c1 * G["u"] - c2 * G_prev["u"],
-                                    c1 * G["v"] - c2 * G_prev["v"],
-                                    perm=self._perm)
-            _, GV = barotropic_mode(grid, c1 * G["u"] - c2 * G_prev["u"],
-                                    c1 * G["v"] - c2 * G_prev["v"],
-                                    perm=self._perm)
-            if fadv:
-                # interior G/G⁻ → interior (GU, GV), zero-padded to the
-                # (X, Y, 1) halo shape (substep_eta refills U/V halos
-                # every substep, so zero GU/GV halos are exact)
-                pad2 = ((grid.Hx, grid.Hx), (grid.Hy, grid.Hy), (0, 0))
-                GU, GV = jnp.pad(GU, pad2), jnp.pad(GV, pad2)
-                stepped = stepped_f
-            else:
-                stepped = ab2_substep(state["solution"], G, G_prev, dt,
-                                      self.ab2_chi, euler)
+            GU, GV = barotropic_mode(grid, c1 * G["u"] - c2 * G_prev["u"],
+                                     c1 * G["v"] - c2 * G_prev["v"])
+            stepped = ab2_substep(state["solution"], G, G_prev, dt,
+                                  self.ab2_chi, euler)
             eta, U_av, V_av = fs.substep_eta(grid, self.eta_bcs, state["eta"],
                                              GU, GV, U0, V0, dt)
-            if int_corr:
-                # u/v are still kernel interiors; correct them in place
-                # and pad once (implicit solve is a no-op — gated above)
-                u, v = fs.corrector_interior(grid, stepped["u"], stepped["v"],
-                                             U_av, V_av, perm=self._perm)
-                pad = self._int_pad()
-                sol = {n: jnp.pad(a, pad) for n, a in stepped.items()
-                       if n not in ("u", "v")}
-                sol["u"], sol["v"] = jnp.pad(u, pad), jnp.pad(v, pad)
-            else:
-                sol = implicit_step_fields(stepped, grid, self._locs(),
-                                           self.closure, dt,
-                                           state.get("diffusivities"),
-                                           self.bcs, clock0.time)
-                u, v = fs.corrector(grid, sol["u"], sol["v"], U_av, V_av,
-                                    perm=self._perm)
-                sol = dict(sol, u=u, v=v)
+            sol = implicit_step_fields(stepped, grid, self._locs(),
+                                       self.closure, dt,
+                                       state.get("diffusivities"),
+                                       self.bcs, clock0.time)
+            u, v = fs.corrector(grid, sol["u"], sol["v"], U_av, V_av)
+            sol = dict(sol, u=u, v=v)
             new_state = dict(state, solution=sol, eta=eta, G_prev=G)
 
         else:  # ImplicitFreeSurface
-            stepped = (stepped_f if fadv else
-                       ab2_substep(state["solution"], G, G_prev, dt,
-                                   self.ab2_chi, euler))
+            stepped = ab2_substep(state["solution"], G, G_prev, dt,
+                                  self.ab2_chi, euler)
             sol = implicit_step_fields(stepped, grid, self._locs(), self.closure,
                                        dt, state.get("diffusivities"),
                                        self.bcs, clock0.time)
             sol = self.fill_all_halos(sol, clock0.time)
-            Qu, Qv = barotropic_mode(grid, sol["u"], sol["v"], perm=self._perm)
+            Qu, Qv = barotropic_mode(grid, sol["u"], sol["v"])
             g_const = fs.gravitational_acceleration
             rhs = (div_xy_2d(grid, Qu, Qv) - state["eta"] / dt) / (g_const * dt)
             eta = fs.solve(grid, self.eta_bcs, rhs, state["eta"], dt)
             gx = g_const * dt * grad_x(grid, eta)
             gy = g_const * dt * grad_y(grid, eta)
-            if self._perm is not None:
-                gx = jnp.transpose(gx, self._perm)
-                gy = jnp.transpose(gy, self._perm)
             sol = dict(sol, u=sol["u"] - gx, v=sol["v"] - gy)
             new_state = dict(state, solution=sol, eta=eta, G_prev=G)
 
@@ -746,12 +508,6 @@ class HydrostaticFreeSurfaceModel:
     def cell_advection_timescale(self, state):
         sol = state["solution"]
         grid = self.grid
-        if state.get("w") is None:   # wphy_in_kernel: rebuild on demand
-            state = dict(state, w=self.compute_w(sol))
-        if self._perm is not None:   # diagnostics run in natural layout
-            from ..ops.permuted import unpermute
-            sol = {k: unpermute(v, self._perm) for k, v in sol.items()}
-            state = dict(state, w=unpermute(state["w"], self._perm))
         scales = []
         vels = (("u", U_LOC, 0), ("v", V_LOC, 1))
         for name, loc, axis in vels:
@@ -771,17 +527,8 @@ class HydrostaticFreeSurfaceModel:
 
     def fields(self, state):
         locs = self._locs()
-        perm = self._perm
-        if perm is not None:
-            from ..ops.permuted import unpermute
-            up = lambda a: unpermute(a, perm)
-        else:
-            up = lambda a: a
-        out = {name: Field(up(arr), locs[name], self.bcs[name])
+        out = {name: Field(arr, locs[name], self.bcs[name])
                for name, arr in state["solution"].items()}
-        w = state.get("w")
-        if w is None:   # wphy_in_kernel: rebuild on demand
-            w = self.compute_w(state["solution"])
-        out["w"] = Field(up(w), W_LOC, self.w_bcs)
+        out["w"] = Field(state["w"], W_LOC, self.w_bcs)
         out["eta"] = Field(state["eta"], ETA_LOC, self.eta_bcs)
         return out

@@ -1,6 +1,6 @@
 """Nonhydrostatic (incompressible Boussinesq) model.
 
-TPU re-design of /root/reference/src/Models/NonhydrostaticModels/
+Array re-design of the reference's src/Models/NonhydrostaticModels/
 (nonhydrostatic_model.jl:26-203, nonhydrostatic_tendency_kernel_functions.jl:44-73,
 pressure_correction.jl, solve_for_pressure.jl, update_nonhydrostatic_model_state.jl):
 
@@ -60,7 +60,7 @@ class NonhydrostaticModel:
                  closure=None, tracers=None, forcing=None,
                  background_fields=None, boundary_conditions=None,
                  timestepper="QuasiAdamsBashforth2", immersed_boundary=None,
-                 particles=None, fused_advection="auto"):
+                 particles=None):
         self.advection = advection if advection is not None else CenteredSecondOrder()
         self.tracer_advection = (tracer_advection if tracer_advection is not None
                                  else self.advection)
@@ -77,16 +77,7 @@ class NonhydrostaticModel:
         self.tracer_names = tuple(names)
         h_req = max(self.advection.required_halo,
                     self.tracer_advection.required_halo, 1)
-        # fused Pallas tendencies want a y-halo multiple of 4 so tile
-        # windows satisfy the TPU sublane (8) tiling constraint
-        from ..ops.fused_tendencies import supports_fused_advection
-        want_fused = (fused_advection is True or
-                      (fused_advection == "auto"
-                       and jax.default_backend() == "tpu"))
-        hy = -(-h_req // 4) * 4 if want_fused else h_req
-        self.grid = grid.with_halo((h_req, hy, h_req))
-        self.fused_advection = bool(want_fused and not background_fields
-                                    and supports_fused_advection(self.grid))
+        self.grid = grid.with_halo((h_req, h_req, h_req))
         self.buoyancy = buoyancy
         self.coriolis = coriolis
         self.stokes_drift = stokes_drift
@@ -99,14 +90,13 @@ class NonhydrostaticModel:
         self.ab2_chi = 0.1
         # build immersed-boundary masks on the final (halo-inflated) grid
         # and wrap it (reference ImmersedBoundaryGrid) so advection sees
-        # the conditional-flux masks; the fused kernel is gated off
+        # the conditional-flux masks
         if immersed_boundary is not None and hasattr(immersed_boundary, "build"):
             immersed_boundary = immersed_boundary.build(self.grid)
         self.immersed_boundary = immersed_boundary
         if immersed_boundary is not None:
             from ..immersed.immersed import ImmersedGrid
             self.grid = ImmersedGrid.wrap(self.grid, immersed_boundary)
-            self.fused_advection = False
         self.particles = particles  # LagrangianParticles or None
         self.pressure_solver = select_pressure_solver(self.grid)
         user_bcs = boundary_conditions or {}
@@ -118,8 +108,6 @@ class NonhydrostaticModel:
         for n in self.tracer_names:
             self.bcs[n] = regularize_bcs(self.grid, CENTER, user_bcs.get(n))
         self.pressure_bcs = regularize_bcs(self.grid, CENTER, None)
-        from ..ops.fused_step import fused_step_ok
-        self.fused_step = fused_step_ok(self)
 
     # -- pytree ---------------------------------------------------------------
     def tree_flatten(self):
@@ -130,8 +118,7 @@ class NonhydrostaticModel:
         fk = tuple(sorted(self.forcing))
         static = (self.advection, self.tracer_advection, self.tracer_names,
                   self.timestepper, self.ab2_chi,
-                  fk, tuple(self.forcing[k] for k in fk), self.fused_advection,
-                  self.fused_step)
+                  fk, tuple(self.forcing[k] for k in fk))
         return leaves, static
 
     @classmethod
@@ -142,21 +129,11 @@ class NonhydrostaticModel:
          obj.background_fields, obj.immersed_boundary,
          obj.particles) = leaves
         (obj.advection, obj.tracer_advection, obj.tracer_names,
-         obj.timestepper, obj.ab2_chi, fk, fv, obj.fused_advection,
-         obj.fused_step) = static
+         obj.timestepper, obj.ab2_chi, fk, fv) = static
         obj.forcing = dict(zip(fk, fv))
         return obj
 
     # -- state ----------------------------------------------------------------
-    @property
-    def g_interior(self):
-        """True when G_prev is stored HALO-FREE (nx, ny, nz): the fused
-        AB2 kernel reads only G interiors, so halo storage costs a
-        ~1 GB/step pad + halo-window DMA for nothing (fused_step.py)."""
-        from ..ops.fused_tendencies import z_halo_free_ok
-        return self.fused_step and z_halo_free_ok(self.grid,
-                                                  self.bcs.get("w"))
-
     def prognostic_names(self):
         return ("u", "v", "w") + self.tracer_names
 
@@ -175,10 +152,7 @@ class NonhydrostaticModel:
             f = new_field(g, locs[name], self.bcs[name])
             sol[name] = set_field(f, g, values.get(name, 0.0)).data
         clock = clock or Clock(jnp.zeros((), g.dtype), jnp.zeros((), jnp.int32))
-        if self.g_interior:
-            zeros = {k: jnp.zeros(g.shape, g.dtype) for k in sol}
-        else:
-            zeros = {k: jnp.zeros_like(v) for k, v in sol.items()}
+        zeros = {k: jnp.zeros_like(v) for k, v in sol.items()}
         state = dict(solution=sol, clock=clock, G_prev=zeros,
                      pNHS=jnp.zeros(g.total_shape, g.dtype),
                      previous_dt=jnp.full((), -1.0, g.dtype))
@@ -233,22 +207,7 @@ class NonhydrostaticModel:
                 state = self.immersed_boundary.mask_state(self, state)
             return state
         t = state["clock"].time
-        locs = self._locs()
-        # under the fully-fused z_slim step, NOTHING reads the z halos of
-        # u/v/passive tracers: the fused kernels slice the z-halo lanes
-        # away (wrap semantics handle the walls), and the fast projection
-        # works on interior views with imposed wall planes. The z fill
-        # stays for w (it writes the bounded wall FACES the kernels' wrap
-        # argument relies on) and for buoyancy tracers (the pHY′ integral's
-        # top face reads the first z-halo cell). Skipping the rest trims
-        # the 256³ benchmark step's halo-fill traffic.
-        zskip = self.fused_step and self.g_interior
-        z_needed = {"w"} | set(self.buoyancy.required_tracers
-                               if self.buoyancy is not None else ())
-        sol = {name: fill_halos(arr, self.grid, locs[name], self.bcs[name],
-                                t, axes=(0, 1) if zskip and name not in
-                                z_needed else (0, 1, 2))
-               for name, arr in state["solution"].items()}
+        sol = self.fill_all_halos(state["solution"], t)
         state = dict(state, solution=sol)
         if self.immersed_boundary is not None:
             state = self.immersed_boundary.mask_state(self, state)
@@ -257,7 +216,7 @@ class NonhydrostaticModel:
 
     def tendencies_overlapped(self, state):
         """Interior/edge-split tendencies for distributed runs — the
-        TPU analog of the reference's nonblocking-MPI overlap
+        analog of the reference's nonblocking-MPI overlap
         (halo_communication.jl:68-86 Isend/Irecv + interior kernels):
 
         1. issue the halo-exchange ppermutes (``fill_all_halos``),
@@ -322,7 +281,6 @@ class NonhydrostaticModel:
                 ms.grid = gsub
                 if self.immersed_boundary is not None:
                     ms.immersed_boundary = gsub.immersed
-                ms.fused_advection = False  # slabs are tiny; jnp path
                 sub = {k: (jax.tree_util.tree_map(
                            lambda x: _slc3(x, axis, start_int, 3 * H), v)
                            if k in ("solution", "diffusivities", "pHY")
@@ -346,19 +304,9 @@ class NonhydrostaticModel:
         scheme = self.advection
         G = {}
 
-        fused_adv = None
-        if self.fused_advection:
-            from ..ops.fused_tendencies import (fused_advective_tendencies,
-                                                z_halo_free_ok)
-            fused_adv = fused_advective_tendencies(
-                grid, scheme, self.tracer_advection, u, v, w,
-                {n: sol[n] for n in self.tracer_names},
-                z_slim=z_halo_free_ok(grid, self.bcs.get("w")))
-            Gu, Gv, Gw = fused_adv["u"], fused_adv["v"], fused_adv["w"]
-        else:
-            Gu = -div_vu(grid, scheme, u, v, w)
-            Gv = -div_vv(grid, scheme, u, v, w)
-            Gw = -div_vw(grid, scheme, u, v, w)
+        Gu = -div_vu(grid, scheme, u, v, w)
+        Gv = -div_vv(grid, scheme, u, v, w)
+        Gw = -div_vw(grid, scheme, u, v, w)
 
         # background-field advection cross terms (reference tendency :61-63);
         # BackgroundField entries are materialized at the traced clock time
@@ -417,8 +365,7 @@ class NonhydrostaticModel:
         ts = self.tracer_advection
         for name in self.tracer_names:
             c = sol[name]
-            Gc = (fused_adv[name] if fused_adv is not None
-                  else -div_Uc(grid, ts, u, v, w, c))
+            Gc = -div_Uc(grid, ts, u, v, w, c)
             # background cross terms (reference
             # nonhydrostatic_tendency_kernel_functions.jl:227-228):
             # background velocities advect c, AND the full velocity
@@ -497,9 +444,8 @@ class NonhydrostaticModel:
 
         Fast path: the divergence and gradient-correction are evaluated on
         interior views with periodic rolls — no halo fills, no with-halo
-        scratch (the round-1 path spent ~10 GB/step at 256³ re-filling
-        velocity and pNHS halos the projection doesn't actually need).
-        pNHS is stored with zero halos (diagnostic only)."""
+        scratch: the projection needs no velocity or pNHS halos. pNHS is
+        stored with zero halos (diagnostic only)."""
         grid = self.grid
         if self._fast_projection_ok():
             sol = dict(state["solution"])
@@ -562,47 +508,16 @@ class NonhydrostaticModel:
             sol[name] = fill_halos(sol[name], grid, self._locs()[name],
                                    self.bcs[name], t)
         u, v, w = sol["u"], sol["v"], sol["w"]
-        fuser = None
-        # the mini div/grad fusers use compile-time scalar metrics, which
-        # requires a fully regular grid (stretched-z fused models run the
-        # whole-array ops with the real per-level Δz instead)
-        if self.fused_advection and grid.z_regular:
-            from ..ops.fused_tendencies import (ConstMetricGrid, pallas_fuse,
-                                                z_halo_free_ok)
-            ax = grid._axes
-            cg = ConstMetricGrid(
-                float(ax[0].extent / max(grid.Nx, 1)),
-                float(ax[1].extent / max(grid.Ny, 1)),
-                float(ax[2].extent / max(grid.Nz, 1)) if grid.Nz > 1 else 1.0)
-            # z-wrap safety of both fused fns under z_halo_free_ok: the
-            # divergence's top-cell read of w[face Nz] wraps to w[face 0]
-            # (both are the impenetrable wall, = 0), and the gradient's
-            # wall-face gz garbage only corrupts w at the walls, which
-            # update_state's halo fill re-imposes before any read.
-            z_slim = z_halo_free_ok(grid, self.bcs.get("w"))
-            fuser = pallas_fuse(lambda uu, vv, ww: (op.div_ccc(uu, vv, ww, cg),),
-                                grid, 1, z_slim=z_slim)
-        if fuser is not None:
-            div = fuser(u, v, w)[0]
-        else:
-            div = op.div_ccc(u, v, w, grid)
+        div = op.div_ccc(u, v, w, grid)
         rhs = grid.interior(div) / dt
         phi_int = self.pressure_solver.solve(rhs)
         pNHS = jnp.zeros(grid.total_shape, grid.dtype)
         sl = tuple(slice(h, h + n) for h, n in zip(grid.halo, grid.shape))
         pNHS = pNHS.at[sl].set(phi_int)
         pNHS = fill_halos(pNHS, grid, CENTER, self.pressure_bcs)
-        gfuser = None
-        if self.fused_advection and grid.z_regular:
-            gfuser = pallas_fuse(
-                lambda p: (st.dxf(p) / cg.dx(U_LOC), st.dyf(p) / cg.dy(V_LOC),
-                           st.dzf(p) / cg.dz(W_LOC)), grid, 3, z_slim=z_slim)
-        if gfuser is not None:
-            gx, gy, gz = gfuser(pNHS)
-        else:
-            gx = st.dxf(pNHS) / grid.dx(U_LOC)
-            gy = st.dyf(pNHS) / grid.dy(V_LOC)
-            gz = st.dzf(pNHS) / grid.dz(W_LOC)
+        gx = st.dxf(pNHS) / grid.dx(U_LOC)
+        gy = st.dyf(pNHS) / grid.dy(V_LOC)
+        gz = st.dzf(pNHS) / grid.dz(W_LOC)
         u = u - dt * gx
         v = v - dt * gy
         w = w - dt * gz
@@ -618,59 +533,16 @@ class NonhydrostaticModel:
     def _ab2_step(self, state, dt):
         clock0 = state["clock"]
         euler = (clock0.iteration == 0) | (jnp.abs(state["previous_dt"] - dt) > 1e-14)
-        if (not self.fused_step
-                and state["G_prev"]["u"].shape != state["solution"]["u"].shape):
-            # state carries the fused path's halo-free G layout but this
-            # model runs the general substep — re-inflate with halos
-            pad = tuple((h, h) for h in self.grid.halo)
-            state = dict(state, G_prev={k: jnp.pad(v, pad)
-                                        for k, v in state["G_prev"].items()})
-        projected = False
         if getattr(self, "halo_overlap", False):
             G, state = self.tendencies_overlapped(state)
-            sol = ab2_substep(state["solution"], G, state["G_prev"], dt,
-                              self.ab2_chi, euler)
-        elif self.fused_step:
-            # tendencies + AB2 substep in one Pallas pass (a closure, if
-            # present, is a kernel-expressible ScalarDiffusivity whose
-            # explicit part ran in-kernel; implicit_step below handles a
-            # vertically-implicit one and is a no-op otherwise).
-            # NOTE a fill-first reorder (fill halos before projection so
-            # div/grad read halos instead of roll-on-interior) measured
-            # 522 vs 679 M pts/s on v5e: the fast path's async interior-
-            # slice copies overlap the FFT matmuls, while extra fills
-            # serialize — keep the roll-based fast projection.
-            from ..ops.fused_step import fused_ab2_advance
-            # interior fast lane: when the implicit solve is a no-op and
-            # the roll-based projection applies, keep u/v/w as kernel
-            # interiors through the projection and pad ONCE at the end —
-            # skips the pad→interior-slice→.at[sl].set round trip
-            # (~0.9 GB/step at 256³ fp32).
-            from ..closures.implicit_vertical_diffusion import (
-                implicit_step_is_noop)
-            interior = (self.g_interior and self._fast_projection_ok()
-                        and implicit_step_is_noop(self.closure))
-            sol, G = fused_ab2_advance(self, state, dt, euler,
-                                       interior_velocities=interior)
-            if interior:
-                ui, vi, wi, phi = self._fast_project_interior(
-                    sol["u"], sol["v"], sol["w"], clock0.time, dt)
-                pad = tuple((h, h) for h in self.grid.halo)
-                sol = dict(sol, u=jnp.pad(ui, pad), v=jnp.pad(vi, pad),
-                           w=jnp.pad(wi, pad))
-                state = dict(state, solution=sol, pNHS=jnp.pad(phi, pad))
-                projected = True
         else:
             G = self.tendencies(state)
-            sol = ab2_substep(state["solution"], G, state["G_prev"], dt,
-                              self.ab2_chi, euler)
-        if not projected:
-            sol = implicit_step_fields(sol, self.grid, self._locs(),
-                                       self.closure, dt,
-                                       state.get("diffusivities"),
-                                       self.bcs, clock0.time)
-            state = dict(state, solution=sol)
-            state = self.project_velocities(state, dt)
+        sol = ab2_substep(state["solution"], G, state["G_prev"], dt,
+                          self.ab2_chi, euler)
+        sol = implicit_step_fields(sol, self.grid, self._locs(), self.closure,
+                                   dt, state.get("diffusivities"), self.bcs,
+                                   clock0.time)
+        state = self.project_velocities(dict(state, solution=sol), dt)
         clock = clock0.tick(dt)
         state = dict(state, clock=clock, G_prev=G,
                      previous_dt=jnp.full((), 1.0, self.grid.dtype) * dt)

@@ -1,6 +1,6 @@
 """Shallow-water model (conservative uh, vh, h formulation).
 
-TPU re-design of /root/reference/src/Models/ShallowWaterModels/
+Array re-design of the reference's src/Models/ShallowWaterModels/
 (shallow_water_model.jl:37-57, solution_and_tracer_tendencies.jl,
 shallow_water_advection_operators.jl, rk3_substep_shallow_water_model.jl):
 state is an immutable pytree, the full RK3 step is one jitted pure
@@ -37,46 +37,32 @@ def _ixyff(h):
 
 
 def _core_tendencies(grid, scheme, tracer_scheme, g, uh, vh, h, tracers,
-                     bathymetry=None, parts=None):
-    """Advection + pressure-gradient + mass tendencies (the fused-kernel
-    core: pure stencil math over any grid-metric provider).
+                     bathymetry=None):
+    """Advection + pressure-gradient + mass tendencies, pure stencil math
+    over any grid-metric provider: returns (Guh, Gvh, Gh, *Gtracers)."""
+    u_cc = st.ixc(uh)
+    v_ff = st.ixf(vh)
+    flux_huu = grid.Ax(CENTER) * transport(scheme, u_cc, uh, 0, False, grid) / h
+    flux_hvu = grid.Ay((F, F, C)) * transport(scheme, v_ff, uh, 1, True, grid) / _ixyff(h)
+    div_mom_u = (st.dxf(flux_huu) + st.dyc(flux_hvu)) / grid.V(U_LOC)
+    Guh = -div_mom_u - st.dxf(0.5 * g * h * h) / grid.dx(U_LOC)
+    if bathymetry is not None:
+        Guh = Guh + g * st.ixf(h) * st.dxf(bathymetry) / grid.dx(U_LOC)
 
-    ``parts``: optional subset of {"uh", "vh", "h", ("c", i)} — only the
-    named tendencies are computed/returned (in canonical order). The
-    y-tiled 2D kernel runs one small pallas_call per part: the full
-    fused expression's live-temporary stack overflows the TPU scoped-
-    vmem (register spill) budget at large grids."""
-    want = lambda k: parts is None or k in parts
-    outs = []
+    u_ff = st.iyf(uh)
+    v_cc = st.iyc(vh)
+    flux_huv = grid.Ax((F, F, C)) * transport(scheme, u_ff, vh, 0, True, grid) / _ixyff(h)
+    flux_hvv = grid.Ay(CENTER) * transport(scheme, v_cc, vh, 1, False, grid) / h
+    div_mom_v = (st.dxc(flux_huv) + st.dyf(flux_hvv)) / grid.V(V_LOC)
+    Gvh = -div_mom_v - st.dyf(0.5 * g * h * h) / grid.dy(V_LOC)
+    if bathymetry is not None:
+        Gvh = Gvh + g * st.iyf(h) * st.dyf(bathymetry) / grid.dy(V_LOC)
 
-    if want("uh"):
-        u_cc = st.ixc(uh)
-        v_ff = st.ixf(vh)
-        flux_huu = grid.Ax(CENTER) * transport(scheme, u_cc, uh, 0, False, grid) / h
-        flux_hvu = grid.Ay((F, F, C)) * transport(scheme, v_ff, uh, 1, True, grid) / _ixyff(h)
-        div_mom_u = (st.dxf(flux_huu) + st.dyc(flux_hvu)) / grid.V(U_LOC)
-        Guh = -div_mom_u - st.dxf(0.5 * g * h * h) / grid.dx(U_LOC)
-        if bathymetry is not None:
-            Guh = Guh + g * st.ixf(h) * st.dxf(bathymetry) / grid.dx(U_LOC)
-        outs.append(Guh)
+    Gh = -(st.dxc(grid.Ax(U_LOC) * uh)
+           + st.dyc(grid.Ay(V_LOC) * vh)) / grid.V(CENTER)
+    outs = [Guh, Gvh, Gh]
 
-    if want("vh"):
-        u_ff = st.iyf(uh)
-        v_cc = st.iyc(vh)
-        flux_huv = grid.Ax((F, F, C)) * transport(scheme, u_ff, vh, 0, True, grid) / _ixyff(h)
-        flux_hvv = grid.Ay(CENTER) * transport(scheme, v_cc, vh, 1, False, grid) / h
-        div_mom_v = (st.dxc(flux_huv) + st.dyf(flux_hvv)) / grid.V(V_LOC)
-        Gvh = -div_mom_v - st.dyf(0.5 * g * h * h) / grid.dy(V_LOC)
-        if bathymetry is not None:
-            Gvh = Gvh + g * st.iyf(h) * st.dyf(bathymetry) / grid.dy(V_LOC)
-        outs.append(Gvh)
-
-    if want("h"):
-        outs.append(-(st.dxc(grid.Ax(U_LOC) * uh)
-                      + st.dyc(grid.Ay(V_LOC) * vh)) / grid.V(CENTER))
-
-    if tracers and (parts is None
-                    or any(want(("c", i)) for i in range(len(tracers)))):
+    if tracers:
         # tracers ride the VELOCITY u = uh/h̄ˣ, not the transport
         # (reference transport_tracer_flux_x/y + c_div_U,
         # shallow_water_advection_operators.jl:88-145)
@@ -84,9 +70,7 @@ def _core_tendencies(grid, scheme, tracer_scheme, g, uh, vh, h, tracers,
         v_vel = vh / st.iyf(h)
         div_U = (st.dxc(grid.Ax(U_LOC) * u_vel)
                  + st.dyc(grid.Ay(V_LOC) * v_vel)) / grid.V(CENTER)
-        for i, c in enumerate(tracers):
-            if not want(("c", i)):
-                continue
+        for c in tracers:
             fx = grid.Ax(U_LOC) * transport(tracer_scheme, u_vel, c, 0, True, grid)
             fy = grid.Ay(V_LOC) * transport(tracer_scheme, v_vel, c, 1, True, grid)
             div_Uc = (st.dxc(fx) + st.dyc(fy)) / grid.V(CENTER)
@@ -126,22 +110,8 @@ class ShallowWaterModel:
                                      else self.advection)
         h_req = max(getattr(self.advection, "required_halo", 1),
                     self.tracer_advection.required_halo)
-        import jax as _jax
-        from ..grids.topology import BOUNDED
-        # bounded x is incompatible with the tiled fused kernel (absolute
-        # near-boundary order-reduction masks); bounded y is fine (full rows)
-        # all_regular: the fused kernel's metrics are compile-time scalars
-        want_fused = (_jax.default_backend() == "tpu" and not grid.curvilinear
-                      and grid.all_regular
-                      and grid.topology[0] is not BOUNDED
-                      and formulation == "conservative")
-        # fused 2D Pallas tiles need the x-window (sublane dim) to be a
-        # multiple of 8, so pad the x-halo to a multiple of 4
-        hx = -(-h_req // 4) * 4 if want_fused else h_req
-        self.grid = grid.with_halo((hx, h_req, 0))
+        self.grid = grid.with_halo((h_req, h_req, 0))
         self.g = gravitational_acceleration
-        self.g_const = float(gravitational_acceleration)
-        self.fused_advection = bool(want_fused and self.grid.all_regular)
         self.coriolis = coriolis
         self.closure = closure
         self.particles = particles  # LagrangianParticles or None
@@ -171,7 +141,7 @@ class ShallowWaterModel:
         static = (self.advection, self.tracer_advection, self.tracer_names,
                   tuple(sorted(self.forcing)),
                   tuple(self.forcing[k] for k in sorted(self.forcing)),
-                  self.fused_advection, self.g_const, self.formulation)
+                  self.formulation)
         return leaves, static
 
     @classmethod
@@ -181,9 +151,7 @@ class ShallowWaterModel:
          obj.bathymetry, obj.bcs, obj.particles) = leaves
         obj.advection, obj.tracer_advection, obj.tracer_names = static[:3]
         obj.forcing = dict(zip(static[3], static[4]))
-        obj.fused_advection = static[5]
-        obj.g_const = static[6]
-        obj.formulation = static[7]
+        obj.formulation = static[5]
         return obj
 
     # -- state --------------------------------------------------------------
@@ -205,8 +173,7 @@ class ShallowWaterModel:
         clock = clock or Clock(jnp.zeros((), g.dtype), jnp.zeros((), jnp.int32))
         # RK3 carries no tendency history ACROSS steps (the ζ stages use
         # the within-step G only), so the state stores no G_prev: at
-        # 16384² fp32 those 3 dead arrays are 3.2 GB — the difference
-        # between fitting the reference's headline grid in 16 GB or not
+        # 16384² fp32 those 3 dead arrays would be 3.2 GB
         state = dict(solution=sol, clock=clock)
         if self.particles is not None:
             state["particles"] = self.particles
@@ -289,48 +256,8 @@ class ShallowWaterModel:
         scheme = self.advection
         tracer_arrays = [sol[n] for n in self.tracer_names]
 
-        if self.fused_advection:
-            from ..ops import fused_tendencies as _ft
-            ConstMetricGrid, pallas_fuse = _ft.ConstMetricGrid, _ft.pallas_fuse
-            ax = grid._axes
-            # bounded-y order-reduction masks ride into the kernel (the 2D
-            # path keeps y full-width); bounded x is rejected at model build
-            from ..advection.schemes import reduced_order_masks
-            rmasks = {}
-            for sch in (scheme, self.tracer_advection):
-                m = reduced_order_masks(grid, 1, sch)
-                if m is not None:
-                    rmasks[(1, sch.required_halo)] = m
-            cg = ConstMetricGrid(
-                float(ax[0].extent / max(grid.Nx, 1)),
-                float(ax[1].extent / max(grid.Ny, 1)),
-                float(ax[2].extent / max(grid.Nz, 1)) if grid.Nz > 1 else 1.0,
-                reduced_masks=rmasks or None)
-            hB = self.bathymetry
-            n_extra = 1 if hB is not None else 0
-
-            args = [uh, vh, h] + tracer_arrays + ([hB] if hB is not None else [])
-            parts = ["uh", "vh", "h"] + [("c", i)
-                                         for i in range(len(tracer_arrays))]
-
-            def core_for(selected):
-                def core(uh_b, vh_b, h_b, *rest):
-                    bath = rest[-1] if n_extra else None
-                    trs = rest[:len(tracer_arrays)]
-                    return _core_tendencies(cg, scheme, self.tracer_advection,
-                                            self.g_const, uh_b, vh_b, h_b,
-                                            trs, bath, parts=selected)
-                return core
-
-            fused = pallas_fuse(core_for(None), grid,
-                                3 + len(tracer_arrays))
-            outs = fused(*args) if fused is not None else None
-            if outs is None:  # no legal tiling for this dtype → jnp path
-                outs = _core_tendencies(grid, scheme, self.tracer_advection, g,
-                                        uh, vh, h, tracer_arrays, self.bathymetry)
-        else:
-            outs = _core_tendencies(grid, scheme, self.tracer_advection, g,
-                                    uh, vh, h, tracer_arrays, self.bathymetry)
+        outs = _core_tendencies(grid, scheme, self.tracer_advection, g,
+                                uh, vh, h, tracer_arrays, self.bathymetry)
         Guh, Gvh, Gh = outs[0], outs[1], outs[2]
         Gtracers = outs[3:]
 

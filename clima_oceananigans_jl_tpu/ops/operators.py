@@ -1,6 +1,6 @@
 """Metric-aware staggered finite-volume operators.
 
-The TPU analog of /root/reference/src/Operators/ (derivative_operators.jl,
+The array analog of the reference's src/Operators/ (derivative_operators.jl,
 divergence_operators.jl, laplacian_operators.jl, vorticity_operators.jl):
 whole-array expressions combining index-space stencils (ops/stencil.py)
 with the grid's metric arrays. All location logic is static, resolved at

@@ -1,13 +1,13 @@
 """Index-space stencil micro-ops.
 
-TPU-native analog of the reference's inlined difference/interpolation
+Array analog of the reference's inlined difference/interpolation
 operators (/root/reference/src/Operators/difference_operators.jl,
 interpolation_operators.jl). Instead of per-point ``(i, j, k)`` functions,
 each op is a whole-array expression built from static shifts, which XLA
 fuses into a single pass over HBM.
 
 Shift convention: ``shift(f, n, axis)[i] = f[i + n]``. Implemented with
-``jnp.roll`` (a concat of two static slices on TPU): values wrapped across
+``jnp.roll`` (a concat of two static slices): values wrapped across
 the array edge land in the halo region, which is (a) exactly correct for
 periodic topologies and (b) overwritten by the next halo fill otherwise.
 Invariant: stencil ops consume arrays with *valid halos* and produce
@@ -22,45 +22,12 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-#: active logical→physical axis permutation (None = identity). The fused
-#: Pallas kernels for shallow-z grids run on TRANSPOSED (x, z, y) blocks —
-#: y in the TPU lane dimension instead of a heavily-padded short z (zt=38
-#: pads to 128 lanes: 3.4× wasted VPU work, measured 378 vs 1620 M pts/s).
-#: Entering ``axis_permutation((0, 2, 1))`` while tracing a kernel body
-#: makes every stencil shift (and, via ``phys_axis``, every iota/reshape
-#: in advection/schemes.py) address the physical block axis, so the
-#: whole-array stencil/flux code runs unchanged on transposed blocks.
-_AXIS_PERM = None
-
-
-class axis_permutation:
-    """Trace-time context: logical axis `a` maps to physical `perm[a]`."""
-
-    def __init__(self, perm):
-        self.perm = tuple(perm)
-
-    def __enter__(self):
-        global _AXIS_PERM
-        self._old = _AXIS_PERM
-        _AXIS_PERM = self.perm
-        return self
-
-    def __exit__(self, *exc):
-        global _AXIS_PERM
-        _AXIS_PERM = self._old
-        return False
-
-
-def phys_axis(axis):
-    """Physical array axis for logical (x=0, y=1, z=2) `axis`."""
-    return _AXIS_PERM[axis] if _AXIS_PERM is not None else axis
-
 
 def shift(f, n, axis):
     """shift(f, n, axis)[i] = f[i + n] (wrap into halos)."""
     if n == 0:
         return f
-    return jnp.roll(f, -n, axis=phys_axis(axis))
+    return jnp.roll(f, -n, axis=axis)
 
 
 # -- differences: δ ---------------------------------------------------------

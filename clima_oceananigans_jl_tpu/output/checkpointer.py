@@ -1,6 +1,6 @@
 """Checkpointer: exact-restart snapshots of the full state pytree.
 
-TPU-port of /root/reference/src/OutputWriters/checkpointer.jl:9-100 +
+Port of the reference's src/OutputWriters/checkpointer.jl:9-100 +
 Simulations/run.jl:60-91 pickup logic: snapshots include the prognostic
 solution, the clock, AND the AB2 tendency history (G_prev, previous_dt),
 so a restarted run continues bit-identically (verified by
@@ -74,12 +74,7 @@ class Checkpointer:
     def write(self, sim):
         it = sim.model_iteration()
         path = self.checkpoint_path(it)
-        flat = _flatten_state(sim.state)
-        # record the state layout explicitly so a cross-layout restore
-        # is unambiguous even when Yt == Zt (shape-sniffing can't tell)
-        layout = getattr(getattr(sim, "model", None), "state_layout", None)
-        flat["__state_layout"] = np.asarray(layout or "natural")
-        np.savez(path, **flat)
+        np.savez(path, **_flatten_state(sim.state))
         if self.keep:
             existing = sorted(self._all(), key=self._iter_of)
             for old in existing[:-self.keep]:
@@ -98,33 +93,19 @@ class Checkpointer:
         return max(paths, key=self._iter_of) if paths else None
 
 
-def restore_state(template_state, path, model=None):
-    """Load a checkpoint into the structure of `template_state`. When
-    `model` is given and the file records a ``__state_layout`` different
-    from the model's, the 3D solution arrays are permuted into the
-    model's layout (exact, unlike the shape-sniffing fallback in
-    ``HydrostaticModel._coerce_layout`` which is ambiguous for
-    Yt == Zt grids)."""
+def restore_state(template_state, path):
+    """Load a checkpoint into the structure of `template_state`. Files
+    written by older versions may record a ``__state_layout``: the
+    natural (x, y, z) layout is the only one this version stores, and a
+    file recording the transposed (x, z, y) layout is refused."""
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
-    saved_layout = str(flat.pop("__state_layout", "natural"))
-    state = _unflatten_state(template_state, flat)
-    if model is not None:
-        want = getattr(model, "state_layout", None) or "natural"
-        if want != saved_layout:
-            from ..ops.permuted import permute, unpermute
-            conv = permute if want == "xzy" else unpermute
-
-            def c(a):
-                return conv(a) if getattr(a, "ndim", 0) == 3 else a
-            state = dict(state)
-            for k in ("solution", "G_prev"):
-                if k in state and isinstance(state[k], dict):
-                    state[k] = {n: c(v) for n, v in state[k].items()}
-            for k in ("w", "pHY"):
-                if k in state:
-                    state[k] = c(state[k])
-    return state
+    layout = str(flat.pop("__state_layout", "natural"))
+    if layout != "natural":
+        raise ValueError(
+            f"{path} stores its 3D fields in the {layout!r} layout; only "
+            "checkpoints in the natural (x, y, z) layout can be restored")
+    return _unflatten_state(template_state, flat)
 
 
 def pickup_latest(sim, pickup=True):
@@ -142,5 +123,5 @@ def pickup_latest(sim, pickup=True):
         path = pickup
     if path is None or not os.path.exists(path):
         return False
-    sim.state = restore_state(sim.state, path, model=getattr(sim, "model", None))
+    sim.state = restore_state(sim.state, path)
     return True

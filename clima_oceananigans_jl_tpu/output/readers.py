@@ -1,6 +1,6 @@
 """Output readers: FieldTimeSeries readback.
 
-TPU-port of /root/reference/src/OutputReaders/field_time_series.jl:16-56:
+Port of the reference's src/OutputReaders/field_time_series.jl:16-56:
 ``FieldTimeSeries(path, name)`` loads every saved time of one output from
 an ``HDF5OutputWriter`` file into a (Nt, ...) array with ``times``,
 either eagerly (``backend="memory"``) or lazily per index

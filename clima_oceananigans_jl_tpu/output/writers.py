@@ -1,6 +1,6 @@
 """Schedule-driven output writers.
 
-TPU-port of /root/reference/src/OutputWriters/:
+Port of the reference's src/OutputWriters/:
 * ``HDF5OutputWriter`` — the JLD2 analog (JLD2 is an HDF5 container), one
   group per output time holding every output array
   (jld2_output_writer.jl:17).

@@ -1,6 +1,6 @@
 """Domain decomposition: global grid → per-shard local grids.
 
-TPU re-design of the reference's distributed grid construction
+Array re-design of the reference's distributed grid construction
 (/root/reference/src/Distributed/distributed_grids.jl + multi_architectures.jl:
 local grid + Communication BCs injected on partitioned sides). Here a
 global grid is sliced into identical local grids whose cut axes are

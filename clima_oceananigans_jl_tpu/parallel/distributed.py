@@ -1,11 +1,12 @@
 """Distributed models: shard_map the full time step over a device mesh.
 
-TPU-native analog of the reference's ``MultiArch`` + distributed model
+Analog of the reference's ``MultiArch`` + distributed model
 wiring (/root/reference/src/Distributed/): the user builds a model on the
 GLOBAL grid, wraps it in ``DistributedModel(model, mesh)``, and gets the
 same ``initial_state``/``step`` API with every per-step array op running
 under one ``shard_map`` over the ``(x, y)`` mesh. Halo exchange rides the
-BC layer (ppermute on ICI), global reductions become psums, and XLA
+BC layer (ppermute, NCCL over NVLink), global reductions become psums,
+and XLA
 overlaps communication with interior compute.
 """
 from __future__ import annotations
@@ -42,7 +43,7 @@ class DistributedModel:
     (``tendencies_overlapped`` on the nonhydrostatic and hydrostatic
     models): halo-exchange ppermutes are issued with no data dependency
     on the bulk tendency compute, so XLA schedules the collectives
-    concurrently with it — the TPU analog of the reference's
+    concurrently with it — the analog of the reference's
     nonblocking-MPI interior/boundary kernel split
     (halo_communication.jl:68-86). Supports immersed boundaries
     (shard-local masks, strip-sliced) and background fields; requires a
@@ -53,23 +54,6 @@ class DistributedModel:
     def __init__(self, model, mesh, overlap_halo=False):
         self.mesh = mesh
         self.mesh_shape = (mesh.shape["x"], mesh.shape["y"])
-        if (getattr(model, "state_layout", None) is not None
-                or getattr(model, "wphy_in_kernel", False)
-                or getattr(model, "fused_advance", False)):
-            # The permuted (x, z, y) state layout is single-device only:
-            # scatter_state shards array axis 1 with P('x', 'y') and the
-            # halo exchange ppermutes assume the natural orientation. Run
-            # the distributed step in the natural layout (the fused
-            # kernel still engages, paying its local transposes).
-            # wphy_in_kernel is likewise cleared: the distributed step's
-            # overlap/tendency paths consume state["w"]/state["pHY"].
-            # fused_advance too: interior-shaped G_prev would break the
-            # P('x','y') scatter and the halo exchange.
-            model = copy.copy(model)
-            model.state_layout = None
-            model.wphy_in_kernel = False
-            if getattr(model, "fused_advance", False):
-                model.fused_advance = False
         self.global_model = model
         self.grid = model.grid  # the global grid (for the user-facing API)
         (self.stacked_grid, self.grid_specs,

@@ -1,11 +1,11 @@
-"""Distributed Poisson solvers: all_to_all pencil transposes over ICI.
+"""Distributed Poisson solvers: all_to_all pencil transposes.
 
-TPU re-design of the reference's PencilFFTs-based
+Array re-design of the reference's PencilFFTs-based
 ``DistributedFFTBasedPoissonSolver``
 (/root/reference/src/Distributed/distributed_fft_based_poisson_solver.jl:24-80):
 the same pencil algorithm — transform each axis while it is device-local,
 transposing between pencil layouts in between — but the MPI all-to-alls
-become ``lax.all_to_all`` collectives that ride the ICI mesh inside the
+become ``lax.all_to_all`` collectives (NCCL over NVLink) inside the
 model's ``shard_map``. Keeping z local throughout (the mesh is (x, y)
 only, like the reference's decomposition restriction) lets the same
 4-transpose skeleton serve both the full-FFT solve and the stretched-z

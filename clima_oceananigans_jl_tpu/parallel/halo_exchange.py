@@ -1,10 +1,10 @@
-"""Distributed halo exchange over a device mesh (ICI/DCN collectives).
+"""Distributed halo exchange over a device mesh (NCCL collectives).
 
-TPU-native replacement for the reference's MPI halo communication
+Replacement for the reference's MPI halo communication
 (/root/reference/src/Distributed/halo_communication.jl:68-86,143-183 —
 tagged ``MPI.Isend``/``MPI.Irecv!`` per side + waitall). Here each cut
 axis becomes one pair of ``lax.ppermute`` neighbor shifts inside a
-``shard_map``; XLA schedules the permutes on the ICI links and overlaps
+``shard_map``; XLA hands the permutes to NCCL over NVLink and overlaps
 them with independent compute automatically (no tags, requests or
 events).
 

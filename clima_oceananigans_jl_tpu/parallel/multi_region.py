@@ -2,10 +2,10 @@
 
 API-parity wrapper for /root/reference/src/MultiRegion/ (multi_region_grid.jl:5-66,
 ``MultiRegionGrid(grid; partition=XPartition(n), devices)``,
-``@apply_regionally``). On TPU this subsystem collapses: the reference's
+``@apply_regionally``). Under JAX this subsystem collapses: the reference's
 per-GPU region objects, device switching and unified-memory solvers
 (multi_region_transformation.jl:93-111) are exactly what a
-``jax.sharding.Mesh`` over the host's local chips provides — so a
+``jax.sharding.Mesh`` over the host's local GPUs provides — so a
 MultiRegionGrid here is a thin front-end that builds the mesh and reuses
 the general distributed machinery (shard_map + ppermute halo exchange).
 The cubed-sphere region exchange — the part of MultiRegion with real

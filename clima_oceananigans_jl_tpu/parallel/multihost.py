@@ -1,23 +1,25 @@
-"""Multi-host (pod) execution helpers.
+"""Multi-host execution helpers.
 
-TPU-native analog of the reference's MPI architecture setup
+Analog of the reference's MPI architecture setup
 (/root/reference/src/Distributed/multi_architectures.jl:9-16 builds the
 `Distributed` architecture from an MPI communicator; here the runtime is
 `jax.distributed` + a device mesh whose axes are laid out so halo
-exchange rides ICI within a host/slice and only the outer decomposition
-axis crosses DCN).
+exchange stays on a host's NVLink-joined GPUs and only the outer
+decomposition axis crosses the network between hosts).
 
 Pieces:
 
 * ``initialize_distributed()`` — idempotent `jax.distributed.initialize`
-  wrapper with environment auto-detection (GKE/TPU pod envs provide
-  coordinator/process info; explicit kwargs override).
+  wrapper with environment auto-detection (a coordinator address or a
+  Slurm job in the environment; explicit kwargs override).
 * ``pod_mesh(mesh_shape)`` — an ``(x, y)`` Mesh for DistributedModel
-  whose device order keeps mesh-adjacent shards ICI-adjacent: within a
+  whose device order keeps mesh-adjacent shards on one host: within a
   process the devices vary fastest along ``y`` (the most-exchanged
   axis), and distinct processes tile the outer ``x`` axis, so the only
-  DCN hops are the x-axis halo slabs — the reference's
-  "long-dimension-outside" decomposition advice (SURVEY §5).
+  inter-host hops are the x-axis halo slabs — the reference's
+  "long-dimension-outside" decomposition advice (SURVEY §5). On one
+  host every GPU pair is joined by NVLink at the same rate, and any
+  order is as good as this one.
 * ``save_sharded_checkpoint`` / ``load_sharded_checkpoint`` — per-process
   checkpointing of a distributed state: each process writes only its
   addressable shards; restore re-assembles and re-shards.
@@ -38,7 +40,7 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
     """Initialize the multi-host runtime (idempotent).
 
     With no arguments, relies on `jax.distributed.initialize()`'s own
-    cluster auto-detection (TPU pod metadata, GKE, Slurm); explicit
+    cluster auto-detection (coordinator variables, Slurm); explicit
     values win. Safe to call in single-process runs: if no cluster
     environment is detected and no arguments are given, it's a no-op.
     Returns (process_id, num_processes).
@@ -49,8 +51,7 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
     explicit = coordinator_address is not None
     auto = any(v in os.environ for v in
                ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS",
-                "MEGASCALE_COORDINATOR_ADDRESS", "SLURM_JOB_ID",
-                "TPU_WORKER_HOSTNAMES"))
+                "SLURM_JOB_ID"))
     if explicit or auto:
         jax.distributed.initialize(coordinator_address=coordinator_address,
                                    num_processes=num_processes,
@@ -65,15 +66,15 @@ def _device_key(d):
 
 
 def pod_mesh(mesh_shape, devices=None):
-    """Build the (x, y) Mesh for ``DistributedModel`` with DCN-aware
+    """Build the (x, y) Mesh for ``DistributedModel`` with host-aware
     device placement.
 
     ``mesh_shape = (nx_shards, ny_shards)``. Requirement for a clean
-    DCN/ICI split: the per-process device count must be a multiple of
+    host split: the per-process device count must be a multiple of
     ``ny_shards`` (each process owns whole y-rings) — then every y-axis
-    ppermute stays inside one process (ICI) and only x-axis neighbors
-    cross processes. Falls back to simple order if the divisibility
-    fails (still correct, just more DCN traffic).
+    ppermute stays inside one host (NVLink) and only x-axis neighbors
+    cross hosts. Falls back to simple order if the divisibility fails
+    (still correct, just more inter-host traffic).
     """
     arr = mesh_device_array(
         devices if devices is not None else jax.devices(), mesh_shape)

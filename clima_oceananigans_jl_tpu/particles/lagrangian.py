@@ -1,10 +1,10 @@
 """Lagrangian particle tracking.
 
-TPU re-design of /root/reference/src/LagrangianParticleTracking/
+Array re-design of the reference's src/LagrangianParticleTracking/
 (LagrangianParticleTracking.jl:17-29, update_particle_properties.jl):
 particles are a pytree of coordinate arrays (N,) plus custom property
 arrays, advected by trilinear interpolation of the staggered velocity
-field — a fully vectorized gather over the particle batch (the TPU-native
+field — a fully vectorized gather over the particle batch (the array
 replacement for the per-particle kernel loop). Walls reflect positions
 with a ``restitution`` coefficient; periodic axes wrap. Tracked fields
 are sampled onto per-particle properties each step.

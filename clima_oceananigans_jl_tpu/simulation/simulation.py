@@ -98,10 +98,8 @@ class Simulation:
         self.verbose = verbose
         self.callbacks["nan_checker"] = Callback(NaNChecker(self._default_nan_fields()),
                                                  IterationInterval(100))
-        # layout-pinned jit where the model's Pallas kernels require it
-        # (models/compile.py) — plain jax.jit(model.step) elsewhere
         from ..models.compile import compile_step
-        self._compiled_step, self.state = compile_step(model, self.state)
+        self._compiled_step = compile_step(model)
 
     def _default_nan_fields(self):
         # monitor every prognostic field (reference nan_checker.jl checks a

@@ -1,6 +1,6 @@
 """FFT-based Poisson solver on regular grids.
 
-TPU re-design of /root/reference/src/Solvers/fft_based_poisson_solver.jl
+Array re-design of the reference's src/Solvers/fft_based_poisson_solver.jl
 (+ plan_transforms.jl, poisson_eigenvalues.jl:1-32): solves
 (∇² + m)φ = b by eigenfunction expansion of the staggered 2nd-order
 Laplacian. Per-axis transform by topology: FFT (periodic), DCT-II
@@ -39,85 +39,6 @@ def _reshape_axis(arr, axis):
     return arr.reshape(shape)
 
 
-def _dct2_matrix(N, dtype):
-    """Orthonormal DCT-II matrix C[k,n] = s_k cos(π(2n+1)k/2N)."""
-    k = jnp.arange(N, dtype=dtype)[:, None]
-    n = jnp.arange(N, dtype=dtype)[None, :]
-    C = jnp.cos(jnp.pi * (2.0 * n + 1.0) * k / (2.0 * N))
-    s = jnp.where(k == 0, jnp.sqrt(1.0 / N), jnp.sqrt(2.0 / N))
-    return (s * C).astype(dtype)
-
-
-def _rdft_matrix(N, dtype):
-    """Orthonormal real-DFT matrix B (N×N): rows ordered by the
-    wavenumber index of `_rdft_wavenumbers` — constant, then
-    interleaved cos/sin pairs for k = 1..N/2−1, then the Nyquist
-    (−1)ⁿ row for even N.  B is orthogonal (inverse = Bᵀ) and
-    diagonalizes every symmetric circulant, so the periodic-axis
-    Poisson transform becomes ONE real MXU matmul each way instead of a
-    complex FFT — no half-spectrum bookkeeping, no complex arithmetic.
-    """
-    j = jnp.arange(N, dtype=dtype)[None, :]
-    rows = [jnp.full((1, N), 1.0 / jnp.sqrt(jnp.asarray(float(N), dtype)))]
-    for k in range(1, (N - 1) // 2 + 1):
-        ang = 2.0 * jnp.pi * k * j / N
-        s = jnp.sqrt(jnp.asarray(2.0 / N, dtype))
-        rows.append(s * jnp.cos(ang))
-        rows.append(s * jnp.sin(ang))
-    if N % 2 == 0:
-        rows.append((jnp.where(jnp.arange(N) % 2 == 0, 1.0, -1.0)[None, :]
-                     / jnp.sqrt(jnp.asarray(float(N), dtype))).astype(dtype))
-    return jnp.concatenate(rows, 0).astype(dtype)
-
-
-def _rdft_wavenumbers(N):
-    """Wavenumber index of each `_rdft_matrix` row (for eigenvalue
-    reordering): [0, 1, 1, 2, 2, …, N/2]."""
-    kk = [0]
-    for k in range(1, (N - 1) // 2 + 1):
-        kk += [k, k]
-    if N % 2 == 0:
-        kk.append(N // 2)
-    return jnp.asarray(kk)
-
-
-#: MXU pass count for the fp32 transform matmuls. HIGHEST (bf16_6x,
-#: beyond-fp32 accuracy) is the default; CLIMA_FFT_PRECISION=high picks
-#: bf16_3x (~fp32-comparable, ~2× the MXU rate) — measured on v5e the
-#: 256³ projection residual grows from ~1e-6 to ~4e-6 of the velocity
-#: scale, and the solver-level Poisson residual test still passes.
-import os as _os
-_PRECISION = {"high": jax.lax.Precision.HIGH,
-              "default": jax.lax.Precision.DEFAULT}.get(
-    _os.environ.get("CLIMA_FFT_PRECISION", "highest"),
-    jax.lax.Precision.HIGHEST)
-
-
-def _matmul_along(b, M, axis):
-    """Apply M (K×N) along `axis` of b: out[...,k,...] = Σ_n M[k,n] b[n].
-    One MXU contraction — on TPU this beats the FFT lowering by ~an
-    order of magnitude in both traffic and time for N ≤ ~1024.
-    Precision HIGHEST keeps the transform at fp32 accuracy (multi-pass
-    bf16 on the MXU); the matmuls are far from the HBM roofline so the
-    extra passes are free."""
-    out = jnp.tensordot(b, M, axes=[[axis], [1]],
-                        preferred_element_type=b.dtype,
-                        precision=_PRECISION)
-    return jnp.moveaxis(out, -1, axis)
-
-
-#: Override for the MXU-matmul transform path: None = auto (TPU only),
-#: True/False force it on/off (tests force True on CPU for coverage).
-FORCE_MXU = None
-
-
-def _use_mxu_dct(b, axis):
-    if FORCE_MXU is not None:
-        return FORCE_MXU and not jnp.iscomplexobj(b)
-    return (jax.default_backend() == "tpu" and not jnp.iscomplexobj(b)
-            and b.shape[axis] <= 1024)
-
-
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass
 class FFTPoissonSolver:
@@ -152,28 +73,16 @@ class FFTPoissonSolver:
         return tuple(a for a in range(3) if self.topology[a] is topo)
 
     def solve(self, rhs, m=0.0):
-        """(∇² + m)φ = rhs (interior arrays, no halos). On TPU every
-        transform axis is ONE real orthogonal matmul each way on the MXU
-        (DCT-II for bounded, real-DFT for periodic — see _rdft_matrix);
-        elsewhere the first periodic axis uses a real FFT (halved
+        """(∇² + m)φ = rhs (interior arrays, no halos). Bounded axes take
+        an orthonormal DCT-II; the first periodic axis a real FFT (halved
         spectrum) and the rest complex FFTs."""
         dct_axes = self._axes_of(BOUNDED)
-        all_fft_axes = self._axes_of(PERIODIC)
+        fft_axes = self._axes_of(PERIODIC)
         eig = list(self.eigenvalues)
 
         b = rhs
-        mm_axes = tuple(a for a in all_fft_axes if _use_mxu_dct(rhs, a))
-        for a in mm_axes:
-            n_a = b.shape[a]
-            b = _matmul_along(b, _rdft_matrix(n_a, b.dtype), a)
-            kk = _rdft_wavenumbers(n_a)
-            eig[a] = jnp.take(eig[a], kk, axis=a)
-        fft_axes = tuple(a for a in all_fft_axes if a not in mm_axes)
         for a in dct_axes:
-            if _use_mxu_dct(b, a):
-                b = _matmul_along(b, _dct2_matrix(b.shape[a], b.dtype), a)
-            else:
-                b = jfft.dct(b, type=2, axis=a, norm="ortho")
+            b = jfft.dct(b, type=2, axis=a, norm="ortho")
         use_rfft = bool(fft_axes) and not jnp.iscomplexobj(b)
         r_axis = fft_axes[0] if use_rfft else None
         c_axes = tuple(a for a in fft_axes if a != r_axis)
@@ -200,12 +109,5 @@ class FFTPoissonSolver:
             phi = jnp.fft.irfft(phi, n=n_r, axis=r_axis)
         phi = jnp.real(phi) if jnp.iscomplexobj(phi) else phi
         for a in reversed(dct_axes):
-            if _use_mxu_dct(phi, a):
-                # orthonormal inverse = Cᵀ: out[n] = Σ_k C[k,n] φ[k]
-                phi = _matmul_along(phi, _dct2_matrix(phi.shape[a],
-                                                      phi.dtype).T, a)
-            else:
-                phi = jfft.idct(phi, type=2, axis=a, norm="ortho")
-        for a in reversed(mm_axes):
-            phi = _matmul_along(phi, _rdft_matrix(phi.shape[a], phi.dtype).T, a)
+            phi = jfft.idct(phi, type=2, axis=a, norm="ortho")
         return phi.astype(self.dtype)

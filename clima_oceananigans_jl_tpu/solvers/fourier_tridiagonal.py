@@ -1,6 +1,6 @@
 """Fourier-tridiagonal Poisson solver for vertically-stretched grids.
 
-TPU analog of /root/reference/src/Solvers/fourier_tridiagonal_poisson_solver.jl:
+Array analog of the reference's src/Solvers/fourier_tridiagonal_poisson_solver.jl:
 FFT/DCT in the regular horizontal directions + a batched tridiagonal solve
 along (possibly stretched) z for every horizontal mode.
 
@@ -22,9 +22,7 @@ import jax.numpy as jnp
 import jax.scipy.fft as jfft
 
 from ..grids.topology import BOUNDED, FLAT, PERIODIC
-from .fft_poisson import (_dct2_matrix, _matmul_along, _rdft_matrix,
-                          _rdft_wavenumbers, _reshape_axis, _use_mxu_dct,
-                          poisson_eigenvalues)
+from .fft_poisson import _reshape_axis, poisson_eigenvalues
 from .tridiagonal import solve_batched_tridiagonal
 
 
@@ -70,32 +68,18 @@ class FourierTridiagonalSolver:
         return cls(*leaves[0], static[0], static[1])
 
     def solve(self, rhs, m=0.0):
-        """(∇² + m)φ = rhs, interior arrays; mean mode zeroed when m=0.
-        On TPU the horizontal transforms are real orthogonal matmuls on
-        the MXU (real-DFT / DCT-II, fft_poisson._rdft_matrix) — which
-        also keeps the batched tridiagonal solve real instead of
-        doubled over complex parts."""
+        """(∇² + m)φ = rhs, interior arrays; mean mode zeroed when m=0."""
         topo = self.topology
         dct_axes = tuple(a for a in (0, 1) if topo[a] is BOUNDED)
-        periodic_axes = tuple(a for a in (0, 1) if topo[a] is PERIODIC)
-        lam = [self.lam_x, self.lam_y]
+        fft_axes = tuple(a for a in (0, 1) if topo[a] is PERIODIC)
 
         b = rhs
-        mm_axes = tuple(a for a in periodic_axes if _use_mxu_dct(rhs, a))
-        for a in mm_axes:
-            n_a = b.shape[a]
-            b = _matmul_along(b, _rdft_matrix(n_a, b.dtype), a)
-            lam[a] = jnp.take(lam[a], _rdft_wavenumbers(n_a), axis=a)
-        fft_axes = tuple(a for a in periodic_axes if a not in mm_axes)
         for a in dct_axes:
-            if _use_mxu_dct(b, a):
-                b = _matmul_along(b, _dct2_matrix(b.shape[a], b.dtype), a)
-            else:
-                b = jfft.dct(b, type=2, axis=a, norm="ortho")
+            b = jfft.dct(b, type=2, axis=a, norm="ortho")
         if fft_axes:
             b = jnp.fft.fftn(b, axes=fft_axes)
 
-        lam_h = lam[0] + lam[1] - m
+        lam_h = self.lam_x + self.lam_y - m
         dzc = self.dzc.reshape(1, 1, -1)
         lo = jnp.broadcast_to(self.lower.reshape(1, 1, -1), b.shape).astype(self.dtype)
         up = jnp.broadcast_to(self.upper.reshape(1, 1, -1), b.shape).astype(self.dtype)
@@ -124,13 +108,7 @@ class FourierTridiagonalSolver:
             phi = jnp.fft.ifftn(phi, axes=fft_axes)
         phi = jnp.real(phi) if jnp.iscomplexobj(phi) else phi
         for a in reversed(dct_axes):
-            if _use_mxu_dct(phi, a):
-                phi = _matmul_along(phi, _dct2_matrix(phi.shape[a],
-                                                      phi.dtype).T, a)
-            else:
-                phi = jfft.idct(phi, type=2, axis=a, norm="ortho")
-        for a in reversed(mm_axes):
-            phi = _matmul_along(phi, _rdft_matrix(phi.shape[a], phi.dtype).T, a)
+            phi = jfft.idct(phi, type=2, axis=a, norm="ortho")
         phi = phi.astype(self.dtype)
         if m == 0.0:
             # zero-mean gauge (the λ=0 mode's tridiagonal system is singular

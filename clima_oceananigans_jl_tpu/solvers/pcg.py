@@ -1,6 +1,6 @@
 """Matrix-free preconditioned conjugate-gradient solver.
 
-TPU analog of /root/reference/src/Solvers/preconditioned_conjugate_gradient_solver.jl:
+Array analog of the reference's src/Solvers/preconditioned_conjugate_gradient_solver.jl:
 ``solve(A, b, x0)`` with a user linear operator ``A(x)`` (a jit-traceable
 array function, e.g. the implicit free-surface operator including its halo
 fills) and optional preconditioner ``M(r)``. The iteration is one

@@ -1,12 +1,12 @@
 """Heptadiagonal stencil matrices: Krylov + geometric-multigrid solvers.
 
-TPU re-design of the reference's sparse-matrix solver pair:
+Array re-design of the reference's sparse-matrix solver pair:
 
 * ``HeptadiagonalIterativeSolver``
   (/root/reference/src/Solvers/heptadiagonal_iterative_solver.jl:12-110):
   the reference assembles a CSC sparse matrix from per-face coefficients
   ``Ax, Ay, Az`` and per-cell ``C, D`` and runs IterativeSolvers.jl CG on
-  it.  On TPU a 7-diagonal matrix IS its coefficient arrays: we keep the
+  it.  Here a 7-diagonal matrix IS its coefficient arrays: we keep the
   dense per-face coupling arrays and apply the operator matrix-free with
   ``jnp.roll`` shifts (XLA fuses the whole matvec into one
   bandwidth-bound pass — there is no sparse format to win anything).
@@ -217,7 +217,7 @@ def _rb_ssor(A, dinv, red, r):
     repeated middle color is idempotent). Symmetric positive definite, so
     a valid CG preconditioner; 2 extra matvecs per application buy
     roughly half the iterations on irregular (immersed-column) matrices —
-    the TPU-friendly stand-in for the reference's ILU
+    the array-friendly stand-in for the reference's ILU
     (sparse_preconditioners.jl: ilu/sparse-inverse menus are pointer-
     chasing host constructions XLA cannot trace)."""
     x = jnp.where(red, dinv * r, 0.0)

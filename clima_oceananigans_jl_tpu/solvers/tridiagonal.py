@@ -1,13 +1,12 @@
 """Batched tridiagonal (Thomas) solver along z.
 
-TPU analog of /root/reference/src/Solvers/batched_tridiagonal_solver.jl:
+Array analog of the reference's src/Solvers/batched_tridiagonal_solver.jl:
 solves M φ = rhs column-wise for every (i, j), where M is tridiagonal with
 lower/diagonal/upper bands (a, b, c). Bands may be 1D (z only) or 3D.
 
 Implemented as two `lax.scan`s (forward elimination, back substitution)
 over the z axis with the full (x, y) plane as the batch — each scan step
-is one fused VPU pass over an (Nx, Ny) slab, which is the layout the TPU
-wants (batch = lanes).
+is one fused elementwise pass over an (Nx, Ny) slab.
 """
 from __future__ import annotations
 
@@ -34,9 +33,8 @@ def solve_batched_tridiagonal(a, b, c, d):
     per-level SCALAR that broadcasts against the (Nx, Ny) plane, instead
     of materializing + transposing three full (Nx, Ny, Nz) band arrays
     (~6 full-field passes of pure streaming for a constant-coefficient
-    closure at the ¼° near-global: measured 11.4 → ~5 ms for the
-    3-field implicit step). Bit-identical: the per-element arithmetic is
-    the same fused multiply-adds either way."""
+    closure). Bit-identical: the per-element arithmetic is the same
+    fused multiply-adds either way."""
     shape = d.shape
     a, b, c = (jnp.asarray(x) for x in (a, b, c))
     if d.ndim == 3 and a.ndim == 1 and b.ndim == 1 and c.ndim == 1:

@@ -2,7 +2,7 @@
 
 The reference encodes staggered locations at the type level
 (``Center``/``Face`` in /root/reference/src/Grids/Grids.jl:1-14, used as
-superscripts on every operator in src/Operators/). On TPU we make the
+superscripts on every operator in src/Operators/). Here we make the
 location an explicit, hashable static value carried alongside arrays:
 every field has a ``loc = (X, Y, Z)`` triple with each entry ``C`` or
 ``F``, used to select metric arrays and boundary-condition formulas at

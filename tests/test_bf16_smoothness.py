@@ -68,8 +68,7 @@ def test_bf16_smoothness_matches_f64_on_smooth_fields():
 def test_bf16_smoothness_full_model_close_and_stable():
     """3 AB2 steps of the benchmark configuration: the bf16-indicator run
     stays within a tight relative envelope of the plain fp32 run and
-    produces finite fields (fused interpret path exercises the Pallas
-    kernel's arithmetic)."""
+    produces finite fields."""
     from clima_oceananigans_jl_tpu import BOUNDED
     from clima_oceananigans_jl_tpu.buoyancy.buoyancy import BuoyancyTracer
     from clima_oceananigans_jl_tpu.models.nonhydrostatic import (
@@ -82,8 +81,7 @@ def test_bf16_smoothness_full_model_close_and_stable():
                                topology=(PERIODIC, PERIODIC, BOUNDED),
                                dtype=jnp.float32)
         m = NonhydrostaticModel(grid, advection=WENO5(bf16_smoothness=bf),
-                                buoyancy=BuoyancyTracer(),
-                                fused_advection=True)
+                                buoyancy=BuoyancyTracer())
         key = jax.random.PRNGKey(0)
         ku, kv, kb = jax.random.split(key, 3)
         s = m.initial_state(

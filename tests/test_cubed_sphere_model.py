@@ -107,7 +107,7 @@ def test_multilevel_step_with_tracer_jits():
 def test_cubed_sphere_faces_shard_over_devices():
     """Multi-device cubed sphere: the (6, X, Y, Z) face axis shards over a
     6-device mesh under plain jit — GSPMD inserts the inter-face gather
-    collectives for the halo exchange (the TPU analog of the reference's
+    collectives for the halo exchange (the array analog of the reference's
     MultiRegion cubed sphere, one face per GPU); bit-identical to the
     single-device step and the output stays face-sharded."""
     import pytest

@@ -653,8 +653,8 @@ def _collective_bytes(hlo_text):
 
 @needs8
 def test_communication_volume_matches_scaling_model():
-    """Regression pin for benchmark/SCALING.md §2's ICI model inputs
-    (VERDICT r3 #9): the per-chip collective volumes of the compiled
+    """Regression pin for benchmark/SCALING.md §3's communication
+    volumes: the per-device collective volumes of the compiled
     distributed steps must equal the closed-form model — any silent
     growth in exchanged fields or transpose volume fails loudly.
 
@@ -721,68 +721,3 @@ def test_communication_volume_matches_scaling_model():
     vol = (32 * 32 * 16) // 4  # per-chip elements
     expect_ab = vol * (1 * itemsize + 7 * 2 * itemsize)
     assert ac == 8 and ab == expect_ab, (ac, ab, expect_ab)
-
-
-@needs8
-def test_distributed_xzy_flagship_matches_single_device():
-    """ADVICE r4 (high): a hydrostatic config whose single-device gate
-    picks the (x, z, y) state layout (ny >= 64 shallow-z lat-lon) must
-    run correctly under DistributedModel — the wrapper clears the layout
-    (scatter/ppermute assume the natural orientation) and the result
-    must match the single-device permuted run."""
-    from clima_oceananigans_jl_tpu.grids.latlon import LatitudeLongitudeGrid
-    from clima_oceananigans_jl_tpu.models.free_surface import (
-        SplitExplicitFreeSurface)
-    from clima_oceananigans_jl_tpu.coriolis.coriolis import (
-        HydrostaticSphericalCoriolis)
-    from clima_oceananigans_jl_tpu.buoyancy.buoyancy import BuoyancyTracer
-    from clima_oceananigans_jl_tpu.advection.vector_invariant import (
-        VectorInvariant)
-
-    grid = LatitudeLongitudeGrid(size=(32, 64, 8), longitude=(0, 360),
-                                 latitude=(-60, 60), z=(-1000.0, 0),
-                                 dtype=jnp.float64)
-    model = HydrostaticFreeSurfaceModel(
-        grid, momentum_advection=VectorInvariant(scheme="weno_velocity"),
-        tracer_advection=WENO5(), tracers=("T",),
-        free_surface=SplitExplicitFreeSurface(substeps=8),
-        coriolis=HydrostaticSphericalCoriolis(),
-        buoyancy=BuoyancyTracer(), fused_advection=True)
-    assert model.state_layout == "xzy", "gate should engage (ny >= 64)"
-
-    def init(m):
-        return m.initial_state(
-            u=lambda lam, phi, z: 0.05 * jnp.cos(jnp.deg2rad(phi)),
-            v=lambda lam, phi, z: 0.01 * jnp.sin(jnp.deg2rad(2 * lam)),
-            b=lambda lam, phi, z: 1e-5 * z,
-            T=lambda lam, phi, z: 10.0 + 1e-3 * z)
-
-    dt = jnp.float64(200.0)
-    s_single = init(model)
-    step = jax.jit(model.step)
-    for _ in range(3):
-        s_single = step(s_single, dt)
-    f_single = model.fields(s_single)
-
-    dmodel = DistributedModel(model, make_mesh((2, 2)))
-    assert dmodel.global_model.state_layout is None
-    assert dmodel.local_model.state_layout is None
-    # the user's model object is untouched
-    assert model.state_layout == "xzy"
-    s_dist = init(dmodel)
-    # natural layout: z (not y) sits in the last array axis
-    assert s_dist["solution"]["u"].shape[2] == model.grid.total_shape[2]
-    for _ in range(3):
-        s_dist = dmodel.step(s_dist, dt)
-    s_dist = dmodel.gather_state(s_dist)
-
-    g = model.grid
-    for name in ("u", "v", "T", "b"):
-        a = np.asarray(g.interior(f_single[name].data))  # fields() unpermutes
-        b = np.asarray(g.interior(s_dist["solution"][name]))
-        np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12,
-                                   err_msg=name)
-    sl = np.s_[g.Hx:g.Hx + g.Nx, g.Hy:g.Hy + g.Ny]
-    a = np.asarray(s_dist["eta"])[sl]
-    b = np.asarray(f_single["eta"].data)[sl]
-    np.testing.assert_allclose(b, a, rtol=1e-9, atol=1e-12)

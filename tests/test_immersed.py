@@ -41,7 +41,6 @@ def test_immersed_grid_forwards_and_masks():
     s = np.asarray(ib.solid_ccc)
     expect = s | np.roll(s, 1, 0) | np.roll(s, 1, 1) | np.roll(np.roll(s, 1, 0), 1, 1)
     assert (m_ffc == expect).all()
-    assert not model.fused_advection
 
 
 def test_conditional_advection_conserves_fluid_tracer():

@@ -116,7 +116,7 @@ def test_upwind_select_matches_two_sided_blend_bitwise():
     """transport()'s select-first upwinding (one sign-selected
     reconstruction) must reproduce the two-sided blend
     ((vel+|vel|)L + (vel−|vel|)R)/2 BIT-FOR-BIT — the IEEE identity the
-    fused kernels' FLOP cut relies on (advection/schemes.py
+    single-reconstruction upwinding relies on (advection/schemes.py
     stream_reconstruct)."""
     from clima_oceananigans_jl_tpu.advection.schemes import (
         WENO5, BoundsPreservingWENO5, transport, upwind_biased_product)

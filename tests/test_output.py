@@ -214,69 +214,31 @@ def test_windowed_time_average_matches_hand_integral():
     assert np.allclose(wta.result(), num / den), (wta.result(), num / den)
 
 
-def test_checkpoint_records_state_layout(tmp_path, monkeypatch):
-    """ADVICE r4: the checkpoint records ``__state_layout`` explicitly so
-    a cross-layout restore is exact even when shape-sniffing would be
-    ambiguous (Yt == Zt)."""
-    from clima_oceananigans_jl_tpu.grids.latlon import LatitudeLongitudeGrid
-    from clima_oceananigans_jl_tpu.models.hydrostatic import (
-        HydrostaticFreeSurfaceModel)
-    from clima_oceananigans_jl_tpu.models.free_surface import (
-        SplitExplicitFreeSurface)
-    from clima_oceananigans_jl_tpu.coriolis.coriolis import (
-        HydrostaticSphericalCoriolis)
-    from clima_oceananigans_jl_tpu.buoyancy.buoyancy import BuoyancyTracer
-    from clima_oceananigans_jl_tpu.advection.vector_invariant import (
-        VectorInvariant)
-    from clima_oceananigans_jl_tpu.advection.schemes import WENO5
+def _write_checkpoint_with_layout(tmp_path, layout):
+    """A one-step shallow-water checkpoint whose file records ``layout``
+    the way older versions stored it."""
+    grid = RectilinearGrid(size=(8, 8, 1), extent=(1.0, 1.0, 1.0),
+                           topology=(PERIODIC, PERIODIC, FLAT))
+    model = ShallowWaterModel(grid=grid, gravitational_acceleration=1.0)
+    s = model.initial_state(h=lambda x, y, z: 1.0 + 0.1 * jnp.sin(2 * jnp.pi * x))
+    s = jax.jit(model.step)(s, 1e-3)
+    path = str(tmp_path / "old.npz")
+    from clima_oceananigans_jl_tpu.output.checkpointer import _flatten_state
+    np.savez(path, __state_layout=np.asarray(layout), **_flatten_state(s))
+    return model, s, path
+
+
+def test_restore_ignores_natural_layout_record(tmp_path):
     from clima_oceananigans_jl_tpu.output.checkpointer import restore_state
-    from clima_oceananigans_jl_tpu.ops.permuted import unpermute
+    model, s, path = _write_checkpoint_with_layout(tmp_path, "natural")
+    restored = restore_state(model.initial_state(), path)
+    for k, v in s["solution"].items():
+        np.testing.assert_array_equal(np.asarray(restored["solution"][k]),
+                                      np.asarray(v))
 
-    def build():
-        grid = LatitudeLongitudeGrid(size=(32, 64, 8), longitude=(0, 360),
-                                     latitude=(-60, 60), z=(-1000.0, 0),
-                                     dtype=jnp.float64)
-        return HydrostaticFreeSurfaceModel(
-            grid, momentum_advection=VectorInvariant(scheme="weno_velocity"),
-            tracer_advection=WENO5(), tracers=("T",),
-            free_surface=SplitExplicitFreeSurface(substeps=8),
-            coriolis=HydrostaticSphericalCoriolis(),
-            buoyancy=BuoyancyTracer(), fused_advection=True)
 
-    m_xzy = build()
-    assert m_xzy.state_layout == "xzy"
-    monkeypatch.setenv("CLIMA_NO_XZY", "1")
-    m_nat = build()
-    monkeypatch.delenv("CLIMA_NO_XZY")
-    assert m_nat.state_layout is None
-
-    s = m_xzy.initial_state(u=lambda lam, phi, z: 0.05 * jnp.cos(
-        jnp.deg2rad(phi)), T=lambda lam, phi, z: 10.0 + 1e-3 * z)
-    s = jax.jit(m_xzy.step)(s, jnp.float64(100.0))
-
-    class _Sim:
-        model = m_xzy
-        state = s
-        def model_iteration(self):
-            return 1
-    ckp = Checkpointer(schedule=IterationInterval(1), dir=str(tmp_path / "cl"))
-    ckp.write(_Sim())
-    path = ckp.checkpoint_path(1)
-    with np.load(path) as d:
-        assert str(d["__state_layout"]) == "xzy"
-
-    # restore into the NATURAL-layout model: leaves come back unpermuted
-    template = m_nat.initial_state()
-    restored = restore_state(template, path, model=m_nat)
-    xt, yt, zt = m_nat.grid.total_shape
-    assert restored["solution"]["u"].shape == (xt, yt, zt)
-    np.testing.assert_array_equal(np.asarray(restored["solution"]["u"]),
-                                  np.asarray(unpermute(s["solution"]["u"])))
-    if "w" in s:  # wphy_in_kernel configs carry no w in the state
-        np.testing.assert_array_equal(np.asarray(restored["w"]),
-                                      np.asarray(unpermute(s["w"])))
-
-    # restore into the SAME-layout model: untouched (bit identical)
-    restored2 = restore_state(m_xzy.initial_state(), path, model=m_xzy)
-    np.testing.assert_array_equal(np.asarray(restored2["solution"]["u"]),
-                                  np.asarray(s["solution"]["u"]))
+def test_restore_refuses_transposed_layout(tmp_path):
+    from clima_oceananigans_jl_tpu.output.checkpointer import restore_state
+    model, _s, path = _write_checkpoint_with_layout(tmp_path, "xzy")
+    with pytest.raises(ValueError, match="xzy"):
+        restore_state(model.initial_state(), path)
